@@ -3,13 +3,21 @@
 
     python3 chip_smoke.py
 
-Builds the port's hand-written CUDA kernels from ``csrc/``, holds each one
-against its plain PyTorch version on the card and times it beside its
-bound, checks the card's path against the CPU path on the committed example
-checkpoint, then serves HTTP requests with a paper-width model (VGG4L,
-kernel_size 1024, 32 heads, DoubleMHA, embedding 400; random weights from a
-fixed seed) and shows from the kernels' launch counts that the serving path
-went through both kernels. Any failed phase exits non-zero. The last line is
+Builds the port's hand-written CUDA kernels from ``csrc/`` (one ``nvcc``
+each, all at once), holds each one against its plain PyTorch version on the
+card and times it beside its bound: B2 (log-mel), B1 (MHA pooling), B3 (the
+int8 3x3 conv at the seven paper-width conv shapes and edge shapes) and the
+two probes P1 (int8/bf16 matrix rate) and P2 (B3's full / dot-only /
+copy-only variants). It checks the card's path against the CPU path on the
+committed example checkpoint, in float32 and in int8_static (equal scales,
+equal int8 activations at every conv), then serves HTTP requests with two
+paper-width models (VGG4L, kernel_size 1024, 32 heads, DoubleMHA, embedding
+400; random weights from a fixed seed): the float32 one, and an
+``int8_static`` one calibrated on a seeded upload, whose embeddings are
+held to its own static forward with B3's plain version. The kernels' launch
+counts, set to 0 just before each server is driven and read just after,
+show that each serving path went through its kernels. Any failed phase
+exits non-zero. The last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": 1}}
 
@@ -33,13 +41,15 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PKG = "doubleattentionspeakerverification_tpu_torch"
 DEVICE = "cuda"
 
-# H100 SXM peaks (NVIDIA data sheet; full 700 W power limit)
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12
-
 TOL_LOGMEL = 2e-4        # JAX holds Pallas against XLA to this (tests/test_pallas_logmel.py)
 TOL_POOL = 1e-5
 TOL_EMBED = 1e-4         # golden-embedding tolerance (tests/test_example_artifact.py)
+TOL_CONV_FP = 1e-6       # B3 float outputs, relative (int8 outputs must be equal)
+COSINE_GUARD = 0.98      # int8_static vs fp embeddings (models/quantized.py's guard)
+# served int8_static embeddings vs the same forward with B3's plain version: the
+# int8 activations are equal, so only the float32 tail's other batch shapes
+# differ; random paper-width embeddings differ from upload to upload by ~1e-4
+TOL_INT8_SERVED = 1e-6
 
 LOGMEL_CASES = ((1, 2.0), (1, 10.0), (1, 60.0), (8, 10.0))   # (batch, seconds)
 LOGMEL_MAIN = (1, 10.0)                                        # reported in the kernels line
@@ -47,6 +57,17 @@ POOL_T = (7, 32, 63, 250)        # T' of the 100/500/1000/4000-frame serving buc
 POOL_MAIN = 63
 POOL_B, POOL_H, POOL_DH = 8, 32, 160
 SERVE_SECONDS = (1.0, 2.5, 4.0, 4.5, 8.0, 8.5, 9.0, 12.0)
+CONV_B = 8               # 8 uploads of 10 s: T = 1000 frames at the first conv
+CONV_PAPER = (           # (name, T, F, Cin, Cout) of the seven B3 convs of VGG4L k=1024
+    ("conv12", 1000, 80, 128, 128), ("conv21", 500, 40, 128, 256),
+    ("conv22", 500, 40, 256, 256), ("conv31", 250, 20, 256, 512),
+    ("conv32", 250, 20, 512, 512), ("conv41", 125, 10, 512, 1024),
+    ("conv42", 125, 10, 1024, 1024),
+)
+CONV_EDGE = (            # (B, T, F, Cin, Cout): ragged last tile, T=1, tiny F, small Cin/Cout
+    (3, 37, 40, 128, 256), (2, 13, 10, 96, 200), (1, 1, 80, 128, 128), (2, 1, 5, 8, 16),
+    (2, 20, 5, 8, 16), (2, 50, 80, 2, 16), (2, 50, 80, 3, 8), (2, 50, 80, 4, 32),
+)
 
 
 class PhaseError(RuntimeError):
@@ -58,52 +79,8 @@ def check(ok: bool, msg: str) -> None:
         raise PhaseError(msg)
 
 
-def cuda_ms(fn, iters: int, replays: int = 10) -> float:
-    """Device time of one ``fn`` call: ``iters`` calls captured in one CUDA
-    graph and replayed, so the host's work between launches is not counted
-    (inputs stay in L2 where they fit, as after the producing kernel)."""
-    import torch
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (replays * iters)
-
-
-def call_ms(fn, iters: int) -> float:
-    """Time of one eager ``fn`` call as a caller sees it, host work included."""
-    import torch
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def bound(n_bytes: float, n_flops: float):
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_flops / FP32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def cosines(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    return (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
 
 
 def seeded_speech(rng, seconds: float, sr: int = 16000) -> np.ndarray:
@@ -134,9 +111,10 @@ def phase_device():
 def phase_build():
     from doubleattentionspeakerverification_tpu_torch import ops
     from doubleattentionspeakerverification_tpu_torch.ops.kernels import build_all
+    from doubleattentionspeakerverification_tpu_torch.tools import rate_probe
 
     t0 = time.perf_counter()
-    logs = build_all(ops.KERNELS)
+    logs = build_all(ops.KERNELS + [rate_probe.KERNEL])
     print(f"[build] {len(logs)} kernels built and loaded in {time.perf_counter() - t0:.2f} s")
     for name, log in logs.items():
         for line in log.splitlines():
@@ -153,6 +131,9 @@ def phase_logmel():
     )
     from doubleattentionspeakerverification_tpu_torch.dsp.mel import padded_stft_window
     from doubleattentionspeakerverification_tpu_torch.ops import logmel
+    from doubleattentionspeakerverification_tpu_torch.tools.timing import (
+        FP32_OPS_PER_S, bound_ms, cuda_ms, eager_ms,
+    )
 
     cfg = FeatureConfig()
     rng = np.random.default_rng(0)
@@ -182,11 +163,12 @@ def phase_logmel():
         worst = max(worst, err)
         iters = 20 if b * seconds <= 10 else 5
         ms = cuda_ms(lambda: logmel.log_mel_cuda(wave, cfg), iters)
-        eager = call_ms(lambda: logmel.log_mel_cuda(wave, cfg), 50)
+        eager = eager_ms(lambda: logmel.log_mel_cuda(wave, cfg), 50)
         plain_ms = cuda_ms(lambda: logmel.log_mel_plain(wave, cfg), iters)
         library_ms = cuda_ms(lambda: library(wave), iters)
-        b_ms, b_by = bound((b * n + b * t * cfg.n_mels + const_elems) * 4,
-                           2.0 * b * t * (cfg.n_fft * 2 * n_bins + n_bins * cfg.n_mels))
+        b_ms, b_by = bound_ms((b * n + b * t * cfg.n_mels + const_elems) * 4,
+                              2.0 * b * t * (cfg.n_fft * 2 * n_bins + n_bins * cfg.n_mels),
+                              FP32_OPS_PER_S)
         print(f"[B2 logmel] B={b} {seconds:g} s T={t}: max|d|={err:.3g} (tol {TOL_LOGMEL}); "
               f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
               f"bound_ms={b_ms:.4f} ({b_by}); eager call {eager:.4f} ms; stft+matmul max|d|="
@@ -211,6 +193,9 @@ def phase_pool():
     import torch.nn.functional as F
 
     from doubleattentionspeakerverification_tpu_torch.ops import mha_pool
+    from doubleattentionspeakerverification_tpu_torch.tools.timing import (
+        FP32_OPS_PER_S, bound_ms, cuda_ms, eager_ms,
+    )
 
     rng = np.random.default_rng(1)
     scale = 1.0 / math.sqrt(POOL_H)          # the reference's d_k = heads quirk
@@ -239,13 +224,13 @@ def phase_pool():
               f"B1 disagrees with its plain version at T'={tp}: {err:.3g}")
         worst = max(worst, err)
         ms = cuda_ms(lambda: mha_pool.mha_pool_cuda(ht4, q_t, lens), 50)
-        eager = call_ms(lambda: mha_pool.mha_pool_cuda(ht4, q_t, lens), 100)
+        eager = eager_ms(lambda: mha_pool.mha_pool_cuda(ht4, q_t, lens), 100)
         plain_ms = cuda_ms(lambda: mha_pool.mha_pool_plain(ht4, q_t, lens), 20)
         library_ms = cuda_ms(library, 20)
         valid = int(np.minimum(lens_np, tp).sum())
-        b_ms, b_by = bound(
+        b_ms, b_by = bound_ms(
             (valid * POOL_H * POOL_DH + q_t.numel() + POOL_B + POOL_B * POOL_H * POOL_DH) * 4,
-            4.0 * valid * POOL_H * POOL_DH)
+            4.0 * valid * POOL_H * POOL_DH, FP32_OPS_PER_S)
         print(f"[B1 mha_pool] B={POOL_B} T'={tp} H={POOL_H} d_h={POOL_DH} lengths={lens_np.tolist()}: "
               f"max|d|={err:.3g} (tol {TOL_POOL}); kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
               f"library_ms={library_ms:.4f} bound_ms={b_ms:.5f} ({b_by}); "
@@ -274,6 +259,162 @@ def phase_example_checkpoint():
           f"(tol {TOL_EMBED})")
 
 
+def conv_inputs(rng, b, t, f, cin, cout):
+    """Seeded B3 inputs on the card: int8 activations and taps, and a mult
+    that spreads the int8 outputs over 0..127."""
+    import torch
+
+    q = rng.integers(-127, 128, (b, t, f, cin), dtype=np.int8)
+    w9 = rng.integers(-127, 128, (9, cin, cout), dtype=np.int8)
+    spread = 64.0 / (math.sqrt(9 * cin) * 127 * 127 / 3)
+    mult = (rng.uniform(0.5, 2.0, cout) * spread).astype(np.float32)
+    bias = (rng.standard_normal(cout) * 10).astype(np.float32)
+    return tuple(torch.from_numpy(x).to(DEVICE) for x in (q, w9, mult, bias))
+
+
+def conv_check(q, w9, mult, bias) -> float:
+    """B3 against its plain version for every out_kind: int8 equal, bit for
+    bit; float32/bfloat16 within TOL_CONV_FP relative. Returns max |d|."""
+    import torch
+
+    from doubleattentionspeakerverification_tpu_torch.ops import conv_int8
+
+    wp = conv_int8.pack_weights(w9)
+    shape = tuple(q.shape)
+    worst = 0.0
+    for kind in conv_int8.OUT_KINDS:
+        got = conv_int8.conv3x3_int8_cuda(q, wp, mult, bias, kind)
+        ref = conv_int8.conv3x3_int8_plain(q, w9, mult, bias, kind)
+        torch.cuda.synchronize()
+        check(got.shape == ref.shape and got.dtype == ref.dtype,
+              f"B3 {kind} at {shape}: {tuple(got.shape)} {got.dtype}")
+        d = (got.to(torch.float64) - ref.to(torch.float64)).abs()
+        if kind == "int8":
+            check(bool((d == 0).all()), f"B3 int8 output differs from its plain version at "
+                  f"{shape}: {int((d != 0).sum())} elements, max |d| {float(d.max())}")
+        else:
+            check(bool((d <= TOL_CONV_FP * ref.to(torch.float64).abs()).all()),
+                  f"B3 {kind} output beyond {TOL_CONV_FP} relative at {shape}: max |d| {float(d.max())}")
+        worst = max(worst, float(d.max()))
+    return worst
+
+
+def phase_conv_int8():
+    """B3 at the seven paper-width convs of one forward of 8 x 10 s (each
+    checked for every out_kind and timed with int8 out) and at edge shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from doubleattentionspeakerverification_tpu_torch.ops import conv_int8
+    from doubleattentionspeakerverification_tpu_torch.tools.conv_int8_probe import im2col_int_mm
+    from doubleattentionspeakerverification_tpu_torch.tools.timing import (
+        HBM_BYTES_PER_S, INT8_OPS_PER_S, bound_ms, cuda_ms,
+    )
+
+    rng = np.random.default_rng(4)
+    worst = 0.0
+    for shape in CONV_EDGE:
+        err = conv_check(*conv_inputs(rng, *shape))
+        worst = max(worst, err)
+        print(f"[B3 conv_int8] edge B,T,F,Cin,Cout={shape}: int8 equal, float max|d|={err:.3g}")
+    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, cudnn_f32_ms=0.0)
+    ops_ms = bytes_ms = 0.0
+    for name, t, f, cin, cout in CONV_PAPER:
+        q, w9, mult, bias = conv_inputs(rng, CONV_B, t, f, cin, cout)
+        worst = max(worst, conv_check(q, w9, mult, bias))
+        wp = conv_int8.pack_weights(w9)
+        ms = cuda_ms(lambda: conv_int8.conv3x3_int8_cuda(q, wp, mult, bias), 5)
+        plain_ms = cuda_ms(lambda: conv_int8.conv3x3_int8_plain(q, w9, mult, bias), 1, replays=2)
+        library_ms = cuda_ms(lambda: im2col_int_mm(q, w9, mult, bias), 2, replays=3)
+        lib = im2col_int_mm(q, w9, mult, bias)
+        check(torch.equal(lib, conv_int8.conv3x3_int8_cuda(q, wp, mult, bias)),
+              f"im2col + torch._int_mm disagrees with B3 at {name}")
+        # the fp path's counterpart: float32 cuDNN conv of the same shape (TF32 off)
+        xf = q.permute(0, 3, 1, 2).to(torch.float32).contiguous()
+        wf = w9.reshape(3, 3, cin, cout).permute(3, 2, 0, 1).to(torch.float32).contiguous()
+        cudnn_ms = cuda_ms(lambda: F.conv2d(xf, wf, padding=1), 2, replays=3)
+        del xf, wf, lib
+        n_ops = 2.0 * CONV_B * t * f * 9 * cin * cout
+        n_bytes = CONV_B * t * f * (cin + cout) + 9 * cin * cout + 8 * cout
+        b_ms, b_by = bound_ms(n_bytes, n_ops, INT8_OPS_PER_S)
+        ops_ms += n_ops / INT8_OPS_PER_S * 1e3
+        bytes_ms += n_bytes / HBM_BYTES_PER_S * 1e3
+        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms),
+                     ("bound_ms", b_ms), ("cudnn_f32_ms", cudnn_ms)):
+            total[k] += v
+        print(f"[B3 conv_int8] {name} B={CONV_B} T={t} F={f} {cin}->{cout}: every out_kind checked; "
+              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+              f"(im2col + torch._int_mm + epilogue) bound_ms={b_ms:.4f} ({b_by}) "
+              f"cudnn_f32_ms={cudnn_ms:.4f}; {n_ops / ms / 1e9:.1f} TOP/s")
+        del q, w9, mult, bias, wp
+        torch.cuda.empty_cache()
+    print(f"[B3 conv_int8] the seven convs of one 8 x 10 s forward: kernel_ms={total['ms']:.4f} "
+          f"plain_ms={total['plain_ms']:.4f} library_ms={total['library_ms']:.4f} "
+          f"bound_ms={total['bound_ms']:.4f} cudnn_f32_ms={total['cudnn_f32_ms']:.4f}; "
+          f"max|d| over all shapes and out_kinds {worst:.3g} (int8 equal, float tol "
+          f"{TOL_CONV_FP} relative)")
+    del total["cudnn_f32_ms"]
+    return dict(max_abs_err=worst, bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                **total)
+
+
+def example_batch(rng):
+    """Seeded normalized features of three uploads, padded into one batch
+    (computed on the CPU, so both devices get the same numbers)."""
+    from doubleattentionspeakerverification_tpu_torch.config import FeatureConfig
+    from doubleattentionspeakerverification_tpu_torch.dsp.features import extract_normalized
+    import torch
+
+    feats = [extract_normalized(torch.from_numpy(seeded_speech(rng, s)), FeatureConfig(), "cmn")
+             for s in (1.5, 3.0, 6.0)]
+    lens = np.array([x.shape[0] for x in feats], np.int64)
+    batch = np.zeros((len(feats), lens.max(), feats[0].shape[1]), np.float32)
+    for i, x in enumerate(feats):
+        batch[i, : len(x)] = x.numpy()
+    return batch, lens
+
+
+def phase_example_int8():
+    """example_model.npz in int8_static on the card and on the CPU, each
+    calibrated on the same seeded batch: equal scales, equal int8
+    activations at every conv, embeddings within TOL_EMBED."""
+    import torch
+
+    from doubleattentionspeakerverification_tpu_torch.api import SpeakerEmbeddingModel
+    from doubleattentionspeakerverification_tpu_torch.models import quantized
+
+    path = os.path.join(HERE, "examples", "pretrained", "example_model.npz")
+    models = {dev: SpeakerEmbeddingModel.from_checkpoint(path, device=dev, quantize="int8_static")
+              for dev in (DEVICE, "cpu")}
+    batch, lens = example_batch(np.random.default_rng(5))
+    mcfg = models["cpu"].cfg.model
+    scales, acts, embs = {}, {}, {}
+    with torch.inference_mode():
+        for dev, m in models.items():
+            x, ln = torch.from_numpy(batch).to(dev), torch.from_numpy(lens).to(dev)
+            qvgg = quantized.quantize_vgg(m.model.vgg)
+            scales[dev] = quantized.calibrate_int8_scales(qvgg, x, ln, mcfg)
+            folded = quantized.fold_static_scales(qvgg, scales[dev], mcfg)
+            acts[dev] = []
+            quantized.quantized_vgg_apply_static(folded, scales[dev][0], x, ln, mcfg,
+                                                 intermediates=acts[dev])
+            check(m.calibrate_quantization(batch, lens) == "static",
+                  f"example checkpoint int8_static on {dev}: {m.quantize_calibration_state()}")
+            embs[dev] = m.embed_features(batch, lens)
+    check(scales[DEVICE] == scales["cpu"],
+          f"int8_static scales differ between the card and the CPU: {scales[DEVICE]} vs {scales['cpu']}")
+    for k, (a, b) in enumerate(zip(acts[DEVICE], acts["cpu"])):
+        check(a.dtype == b.dtype and torch.equal(a.cpu(), b),
+              f"conv {k}: the card's activations differ from the CPU's "
+              f"({int((a.cpu() != b).sum())} of {b.numel()} elements)")
+    err = float(np.abs(embs[DEVICE] - embs["cpu"]).max())
+    check(np.all(np.isfinite(embs[DEVICE])) and err <= TOL_EMBED,
+          f"int8_static embeddings: card vs CPU max|d| {err:.3g}")
+    print(f"[example checkpoint int8_static] {len(scales['cpu'])} scales equal on card and CPU; "
+          f"int8 activations equal at {len(acts['cpu'])} convs ({sum(a.numel() for a in acts['cpu'])} "
+          f"values); embeddings max|d|={err:.3g} (tol {TOL_EMBED})")
+
+
 def paper_config():
     from doubleattentionspeakerverification_tpu_torch.config import ExperimentConfig
 
@@ -284,17 +425,36 @@ def paper_config():
     return cfg
 
 
-def phase_serve(cfg):
-    """The main path: an HTTP server of ``cfg``'s width answering requests."""
+def forward_batch(model):
+    """8 seeded 10 s uploads as one normalized feature batch on the card."""
+    import torch
+
+    rng = np.random.default_rng(7)
+    feats = [model.features_of_wave(seeded_speech(rng, 10.0)) for _ in range(8)]
+    return torch.stack(feats), torch.full((8,), feats[0].shape[0], device=DEVICE)
+
+
+def phase_serve(cfg, quantize="none", expect=("mha_pool", "logmel")):
+    """A serving path: an HTTP server of ``cfg``'s width answering 8
+    concurrent uploads, then /enroll, /verify and /identify. Under
+    ``int8_static`` the model is calibrated on a seeded upload first.
+    Returns the launch counts of the kernels in ``expect``, the /embed
+    embeddings and the device time of one 8 x 10 s forward."""
     import torch
 
     from doubleattentionspeakerverification_tpu_torch import ops
     from doubleattentionspeakerverification_tpu_torch.api import SpeakerEmbeddingModel
     from doubleattentionspeakerverification_tpu_torch.data.wav import encode_wav
     from doubleattentionspeakerverification_tpu_torch.serving import make_server
+    from doubleattentionspeakerverification_tpu_torch.tools.timing import cuda_ms
 
+    tag = "[serve]" if quantize == "none" else f"[serve {quantize}]"
     m = cfg.model
-    model = SpeakerEmbeddingModel.from_random_init(cfg, seed=0, device=DEVICE)
+    model = SpeakerEmbeddingModel.from_random_init(cfg, seed=0, device=DEVICE, quantize=quantize)
+    if quantize == "int8_static":
+        calib = model.features_of_wave(seeded_speech(np.random.default_rng(6), 6.0))
+        state = model.calibrate_quantization(calib)
+        check(state == "static", f"{tag} calibration on a seeded upload gave state {state!r}")
     server = make_server(model, "127.0.0.1", 0, max_batch=8, max_wait_ms=20.0)
     base = f"http://127.0.0.1:{server.server_address[1]}"
     thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -336,24 +496,127 @@ def phase_serve(cfg):
     launches = {k.name: k.launches for k in ops.KERNELS}
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
 
+    embs = []
     for i, (s, r) in enumerate(zip(SERVE_SECONDS, results)):
-        check(r is not None, f"/embed request {i} did not complete")
+        check(r is not None, f"{tag} /embed request {i} did not complete")
         emb = np.asarray(r[0]["embedding"])
         check(emb.shape == (m.embedding_size,) and np.all(np.isfinite(emb)),
-              f"/embed {i}: embedding not finite or of size {emb.shape}")
-        print(f"[serve] /embed {s:g} s audio ({r[0]['frames']} frames): {r[1]:.1f} ms")
-    check(enroll["enrollments"] == 1, f"/enroll: {enroll}")
-    check(verify["score"] >= 0.99 and verify["decision"], f"/verify of the same audio: {verify}")
-    check(ident["speakers"][0]["speaker"] == "spk0", f"/identify: {ident}")
-    print(f"[serve] /enroll {t_enroll:.1f} ms, /verify {t_verify:.1f} ms "
+              f"{tag} /embed {i}: embedding not finite or of size {emb.shape}")
+        embs.append(emb)
+        print(f"{tag} /embed {s:g} s audio ({r[0]['frames']} frames): {r[1]:.1f} ms")
+    check(enroll["enrollments"] == 1, f"{tag} /enroll: {enroll}")
+    check(verify["score"] >= 0.99 and verify["decision"], f"{tag} /verify of the same audio: {verify}")
+    check(ident["speakers"][0]["speaker"] == "spk0", f"{tag} /identify: {ident}")
+    print(f"{tag} /enroll {t_enroll:.1f} ms, /verify {t_verify:.1f} ms "
           f"(score {verify['score']:.6f}), /identify {t_ident:.1f} ms")
-    print(f"[serve] health: requests={health['requests']} forwards={health['forwards']} "
+    print(f"{tag} health: requests={health['requests']} forwards={health['forwards']} "
           f"batched={health['batched']} errors={health['errors']}; "
           f"peak torch.cuda.max_memory_allocated = {peak_mib:.1f} MiB")
-    print(f"[serve] kernel launches on the serving path: {json.dumps(launches)}")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was never launched on the serving path")
-    return launches
+    print(f"{tag} kernel launches on the serving path: {json.dumps(launches)}")
+    for name in expect:
+        check(launches[name] > 0, f"kernel {name} was never launched on the {tag} path")
+    state = model.quantize_calibration_state()
+    check(quantize == "none" or state == "static", f"{tag} served in state {state!r}")
+    if quantize == "int8_static":
+        check_int8_served(model, calib, uploads, np.stack(embs), tag)
+
+    x, lens = forward_batch(model)
+    with torch.inference_mode():
+        fwd_ms = cuda_ms(lambda: model._embed(x, lens), 2, replays=3)
+    print(f"{tag} one forward of 8 x 10 s features (B=8, T={x.shape[1]}): {fwd_ms:.3f} ms "
+          f"device time (CUDA-graph replay); calibration state {state!r}")
+    return launches, np.stack(embs), fwd_ms
+
+
+def check_int8_served(model, calib, uploads, embs, tag):
+    """Holds the served int8_static embeddings to the same model's static
+    forward on the same uploads and scales with B3's plain version in B3's
+    place, within TOL_INT8_SERVED: B3 at the serving shapes, the folded
+    epilogues and the batching, which random (bias-dominated) embeddings
+    hide from the cosine guard. The check fails too if the uploads'
+    embeddings differ from each other by less than ten times its tolerance,
+    where it could not tell a fault. Also holds the paper-width calibration scales of
+    the card to the CPU's on the calibration upload."""
+    import copy
+
+    import torch
+
+    from doubleattentionspeakerverification_tpu_torch.data.wav import decode_wav_bytes
+    from doubleattentionspeakerverification_tpu_torch.models import quantized
+    from doubleattentionspeakerverification_tpu_torch.ops import conv_int8
+
+    mcfg = model.cfg.model
+    with torch.inference_mode():
+        card = quantized.calibrate_int8_scales(quantized.quantize_vgg(model.model.vgg),
+                                               calib[None], None, mcfg)
+        cpu_vgg = copy.deepcopy(model.model.vgg).cpu()
+        cpu = quantized.calibrate_int8_scales(quantized.quantize_vgg(cpu_vgg),
+                                              calib[None].cpu(), None, mcfg)
+    check(card == cpu, f"{tag} paper-width scales differ between the card and the CPU: "
+          f"{card} vs {cpu}")
+
+    def plain_b3(q, w9, mult, bias, out_kind="int8", w_packed=None):
+        return conv_int8.conv3x3_int8_plain(q, w9, mult, bias, out_kind)
+
+    before, b3 = conv_int8.KERNEL.launches, quantized.conv3x3_int8
+    quantized.conv3x3_int8 = plain_b3
+    try:
+        ref = np.stack([model.embed_wave(*decode_wav_bytes(u)) for u in uploads])
+    finally:
+        quantized.conv3x3_int8 = b3
+    check(conv_int8.KERNEL.launches == before, f"{tag} the plain reference launched B3")
+    err = float(np.abs(embs - ref).max())
+    spread = float(np.abs(embs[:, None] - embs[None]).max())
+    check(spread >= 10 * TOL_INT8_SERVED, f"{tag} the uploads' embeddings differ from each "
+          f"other by only {spread:.3g}: a {TOL_INT8_SERVED} check could not see a fault")
+    check(np.isfinite(err) and err <= TOL_INT8_SERVED,
+          f"{tag} served embeddings vs the static forward with B3's plain version: "
+          f"max|d| {err:.3g} > {TOL_INT8_SERVED}")
+    print(f"{tag} {len(card)} calibration scales equal on card and CPU; served embeddings vs "
+          f"the same model's static forward with B3's plain version, one upload at a time: "
+          f"max|d|={err:.3g} (tol {TOL_INT8_SERVED}); the uploads' embeddings differ from each other "
+          f"by up to {spread:.3g}")
+
+
+def phase_rate_probe():
+    """P1 against its plain version; then the probe's timing run, with its
+    launch count read from 0 (eager calls: each call is one launch)."""
+    from doubleattentionspeakerverification_tpu_torch.tools import rate_probe
+
+    checks = rate_probe.check()
+    for kind, c in checks.items():
+        check(c["ok"], f"P1 {kind} disagrees with its plain version: max|d| {c['max_abs_err']:.3g}")
+    rate_probe.KERNEL.launches = 0
+    times = rate_probe.measure()
+    launches = rate_probe.KERNEL.launches
+    for kind, t in times.items():
+        print(f"[P1 rate] {kind} {rate_probe.SIZE}^3: max|d|={checks[kind]['max_abs_err']:.3g} "
+              f"kernel_ms={t['ms']:.4f} ({t['rate_tops']:.1f} TOP/s) plain_ms={t['plain_ms']:.4f} "
+              f"library_ms={t['library_ms']:.4f} bound_ms={t['bound_ms']:.4f} ({t['bound_by']})")
+    main = times["int8"]
+    return dict(launches=launches, max_abs_err=checks["int8"]["max_abs_err"],
+                **{k: main[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+
+
+def phase_conv_probe():
+    """P2: full == B3 == plain at conv22's probe shape; then the three
+    variants' timing run, with its launch count read from 0 (eager calls:
+    each call is one launch)."""
+    from doubleattentionspeakerverification_tpu_torch.tools import conv_int8_probe
+
+    from doubleattentionspeakerverification_tpu_torch.ops import conv_int8
+
+    c = conv_int8_probe.check()
+    check(c["ok"], f"P2 full variant differs from B3 or the plain version: max|d| {c['max_abs_err']}")
+    conv_int8.KERNEL.launches = 0    # the variants are entries of B3's library
+    t = conv_int8_probe.measure()
+    launches = conv_int8.KERNEL.launches
+    print(f"[P2 micro] B,T,F,Cin,Cout={conv_int8_probe.SHAPE}: full == B3 == plain; "
+          f"full_ms={t['full_ms']:.4f} dot_only_ms={t['dot_only_ms']:.4f} "
+          f"copy_only_ms={t['copy_only_ms']:.4f} plain_ms={t['plain_ms']:.4f} "
+          f"library_ms={t['library_ms']:.4f} bound_ms={t['bound_ms']:.4f} ({t['bound_by']})")
+    return dict(launches=launches, max_abs_err=c["max_abs_err"], ms=t["full_ms"],
+                **{k: t[k] for k in ("plain_ms", "library_ms", "bound_ms", "bound_by")})
 
 
 def main() -> int:
@@ -372,12 +635,30 @@ def main() -> int:
 
     resolve_device("cuda")    # float32 stays float32: TF32 off for convs and matmuls
     try:
-        name, _ = phase_device()
+        name, smi = phase_device()
         phase_build()
         logmel_stats = phase_logmel()
         pool_stats = phase_pool()
+        conv_stats = phase_conv_int8()
+        rate_stats = phase_rate_probe()
+        micro_stats = phase_conv_probe()
         phase_example_checkpoint()
-        launches = phase_serve(paper_config())
+        phase_example_int8()
+        cfg = paper_config()
+        launches, fp_embs, fp_ms = phase_serve(cfg)
+        q_launches, q_embs, q_ms = phase_serve(cfg, "int8_static",
+                                               expect=("conv_int8", "mha_pool", "logmel"))
+        cos = cosines(fp_embs, q_embs)
+        centred = cosines(fp_embs - fp_embs.mean(0), q_embs - q_embs.mean(0))
+        print(f"[serve int8_static] cosine to the float32 server's embeddings of the same "
+              f"{len(cos)} uploads: min {cos.min():.6f}, mean {cos.mean():.6f} "
+              f"(bound {COSINE_GUARD}); max|d| {float(np.abs(fp_embs - q_embs).max()):.3g}; "
+              f"centred on their mean (the input-dependent part): min {centred.min():.6f}, "
+              f"mean {centred.mean():.6f}")
+        check(cos.min() >= COSINE_GUARD, f"int8_static embeddings: min cosine {cos.min():.4f} "
+              f"to the float32 server's < {COSINE_GUARD}")
+        print(f"[forward] B=8 x 10 s: float32 {fp_ms:.3f} ms, int8_static {q_ms:.3f} ms "
+              f"({fp_ms / q_ms:.2f}x) device time on {smi}")
     except PhaseError as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -388,6 +669,13 @@ def main() -> int:
         dict(name="logmel", route="cuda", source=f"{PKG}/csrc/logmel.cu",
              replaces="doubleattentionspeakerverification_tpu/ops/logmel_pallas.py:32",
              launches=launches["logmel"], **logmel_stats),
+        dict(name="conv_int8", route="cuda", source=f"{PKG}/csrc/conv_int8.cu",
+             replaces="doubleattentionspeakerverification_tpu/ops/conv_int8_pallas.py:52",
+             launches=q_launches["conv_int8"], **conv_stats),
+        dict(name="mm_probe", route="cuda", source=f"{PKG}/csrc/mm_probe.cu",
+             replaces="tools/_mxu_rate.py:20", **rate_stats),
+        dict(name="conv_int8_probe", route="cuda", source=f"{PKG}/csrc/conv_int8.cu",
+             replaces="tools/_pallas_micro.py:52", **micro_stats),
     ]
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -7,7 +7,11 @@
     sim = model.score(emb, model.embed_wav("b.wav"))   # cosine in [-1, 1]
 
 Runs on the card unless ``device="cpu"`` is given; asking for CUDA where
-there is none raises.
+there is none raises. ``quantize="int8"`` or ``"int8_static"`` serves the
+int8 encoder (``models/quantized.py``; kernel B3 on the card):
+
+    model = SpeakerEmbeddingModel.from_checkpoint(path, quantize="int8_static")
+    model.calibrate_quantization_wav("calibration.wav")   # else the first real batch
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from .dsp.features import extract_normalized
 from .evaluation.eer import cosine_scores
 from .models.classifier import SpeakerClassifier
 from .models.init import init_parameters
+from .models.quantized import make_int8_embed_fn
 from .utils.checkpoint import load_checkpoint
 from .utils.device import resolve_device
 from .utils.weights import params_from_jax
@@ -38,52 +43,102 @@ def _empty_model(cfg: ExperimentConfig) -> SpeakerClassifier:
     return model.to_empty(device="cpu")
 
 
+QUANTIZE_MODES = ("none", "int8", "int8_static")
+
+
 class SpeakerEmbeddingModel:
     def __init__(self, model: SpeakerClassifier, cfg: ExperimentConfig,
-                 normalization: str = "cmn", device="cuda"):
+                 normalization: str = "cmn", device="cuda", quantize: str = "none",
+                 quantize_scales_path: Optional[str] = None):
+        if quantize not in QUANTIZE_MODES:
+            raise ValueError(f"unknown quantize mode {quantize!r}; use one of {QUANTIZE_MODES}")
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.cfg = cfg
         self.normalization = normalization
+        self.quantize = quantize
+        if quantize == "none":
+            self._embed = self.model
+        else:
+            # 'int8': dynamic per-forward activation scales; 'int8_static':
+            # scales calibrated on one batch (the first non-degenerate one,
+            # or calibrate_quantization*), persisted at quantize_scales_path
+            self._embed = make_int8_embed_fn(
+                self.model, cfg.model,
+                scheme="static" if quantize == "int8_static" else "dynamic",
+                scales_path=quantize_scales_path)
+
+    # --------------------------------------------------------- calibration
+    @torch.inference_mode()
+    def calibrate_quantization(self, features: ArrayLike,
+                               lengths: Optional[ArrayLike] = None) -> str:
+        """An explicit ``int8_static`` calibration batch ((T, F) or (B, T, F)
+        normalized features). Raises on degenerate input (zeros, silence) or
+        when the quantize mode takes no calibration; returns the resulting
+        state ('static', or 'fallback_dynamic' if the cosine guard rejected
+        the scales)."""
+        calibrate = getattr(self._embed, "calibrate", None)
+        if calibrate is None:
+            raise ValueError(f"quantize mode {self.quantize!r} takes no calibration batch")
+        x, lengths = self._batch(features, lengths)
+        return calibrate(x, lengths)
+
+    def calibrate_quantization_wav(self, path: str) -> str:
+        """Calibrate ``int8_static`` on one wav file (serve's
+        ``--calibration_wav``) through the inference feature path."""
+        wave, sr = read_wav(path)
+        return self.calibrate_quantization(self.features_of_wave(wave, sr))
+
+    def quantize_calibration_state(self) -> str:
+        """'none' (fp model), 'dynamic', 'uncalibrated', 'static' or
+        'fallback_dynamic'."""
+        state_fn = getattr(self._embed, "calibration_state", None)
+        return state_fn() if state_fn is not None else "none"
 
     # ------------------------------------------------------------- loaders
     @classmethod
-    def from_checkpoint(cls, path: str, normalization: str = "cmn",
-                        device="cuda") -> "SpeakerEmbeddingModel":
+    def from_checkpoint(cls, path: str, normalization: str = "cmn", device="cuda",
+                        quantize: str = "none",
+                        quantize_scales_path: Optional[str] = None) -> "SpeakerEmbeddingModel":
         """Load a JAX package ``.npz`` checkpoint; its embedded config wins."""
         flat, meta = load_checkpoint(path)
         return cls.from_jax(flat, ExperimentConfig.from_dict(meta["config"]),
-                            normalization, device)
+                            normalization, device, quantize, quantize_scales_path)
 
     @classmethod
     def from_jax(cls, flat, cfg: ExperimentConfig, normalization: str = "cmn",
-                 device="cuda") -> "SpeakerEmbeddingModel":
+                 device="cuda", quantize: str = "none",
+                 quantize_scales_path: Optional[str] = None) -> "SpeakerEmbeddingModel":
         """From the JAX package's parameters as flat numpy leaves keyed
         ``params/...`` and ``model_state/...`` (``utils/weights.py``)."""
         model = _empty_model(cfg)
         state = params_from_jax(flat)
         model.load_state_dict({k: state[k] for k in model.state_dict()})
-        return cls(model, cfg, normalization, device)
+        return cls(model, cfg, normalization, device, quantize, quantize_scales_path)
 
     @classmethod
-    def from_random_init(cls, cfg: ExperimentConfig, seed: int = 0,
-                         device="cuda") -> "SpeakerEmbeddingModel":
+    def from_random_init(cls, cfg: ExperimentConfig, seed: int = 0, device="cuda",
+                         quantize: str = "none") -> "SpeakerEmbeddingModel":
         generator = torch.Generator().manual_seed(seed)
-        return cls(init_parameters(_empty_model(cfg), generator), cfg, device=device)
+        return cls(init_parameters(_empty_model(cfg), generator), cfg, device=device,
+                   quantize=quantize)
 
     # ------------------------------------------------------------- embed
+    def _batch(self, features: ArrayLike, lengths: Optional[ArrayLike]):
+        x = torch.as_tensor(features, dtype=torch.float32, device=self.device)
+        if x.dim() == 2:
+            x = x[None]
+        if lengths is not None:
+            lengths = torch.as_tensor(lengths, dtype=torch.int64, device=self.device)
+        return x, lengths
+
     @torch.inference_mode()
     def embed_features(self, features: ArrayLike,
                        lengths: Optional[ArrayLike] = None) -> np.ndarray:
         """(T, F) or (B, T, F) normalized log-mel -> (emb,) or (B, emb)."""
-        x = torch.as_tensor(features, dtype=torch.float32, device=self.device)
-        single = x.dim() == 2
-        if single:
-            x = x[None]
-        if lengths is not None:
-            lengths = torch.as_tensor(lengths, dtype=torch.int64, device=self.device)
-        emb = self.model(x, lengths).cpu().numpy()
-        return emb[0] if single else emb
+        x, lengths = self._batch(features, lengths)
+        emb = self._embed(x, lengths).cpu().numpy()
+        return emb[0] if np.ndim(features) == 2 else emb
 
     def features_cfg_for_rate(self, sample_rate: int) -> FeatureConfig:
         """The configured front-end, rate-adjusted: every constant stays;

@@ -8,13 +8,17 @@ package ``.npz`` checkpoint, on the GPU unless ``--device cpu``:
 
   curl -s -X POST --data-binary @spk.wav localhost:8390/embed
   curl -s localhost:8390/health
+
+``--quantize int8_static --calibration_wav cal.wav --int8_scales s.npz``
+serves the int8 encoder (kernel B3 on the card) with scales calibrated
+before serving and kept for restarts.
 """
 
 from __future__ import annotations
 
 import argparse
 
-from ..api import SpeakerEmbeddingModel
+from ..api import QUANTIZE_MODES, SpeakerEmbeddingModel
 from ..serving import make_server, serve_forever
 
 
@@ -34,6 +38,22 @@ def build_server(argv=None):
                              "(1 = serial)")
     parser.add_argument("--embed_timeout_s", type=float, default=600.0,
                         help="per-request wait bound")
+    parser.add_argument("--quantize", type=str, default="none",
+                        choices=list(QUANTIZE_MODES),
+                        help="'int8': int8 conv encoder with dynamic activation "
+                             "scales; 'int8_static': scales calibrated on the first "
+                             "real batch (degenerate warmup/silence batches are "
+                             "refused) and folded into every conv's epilogue, under "
+                             "a one-shot cosine guard against the fp model that "
+                             "falls back to the dynamic path on failure")
+    parser.add_argument("--calibration_wav", type=str, default=None,
+                        help="int8_static only: calibrate the scales on this wav "
+                             "BEFORE serving (otherwise the first real request "
+                             "calibrates)")
+    parser.add_argument("--int8_scales", type=str, default=None,
+                        help="int8_static only: load the scales from this .npz if "
+                             "it exists, else write them there after the first "
+                             "successful calibration (deterministic restarts)")
     parser.add_argument("--max_body_mb", type=float, default=64.0,
                         help="reject POST bodies larger than this (HTTP 413) "
                              "before buffering them")
@@ -59,8 +79,14 @@ def build_server(argv=None):
                              "e.g. --warmup 350,1000")
     params = parser.parse_args(argv)
 
+    if params.quantize != "int8_static" and (params.calibration_wav or params.int8_scales):
+        parser.error("--calibration_wav/--int8_scales require --quantize int8_static")
     model = SpeakerEmbeddingModel.from_checkpoint(
-        params.modelCheckpoint, params.normalization, device=params.device)
+        params.modelCheckpoint, params.normalization, device=params.device,
+        quantize=params.quantize, quantize_scales_path=params.int8_scales)
+    if params.calibration_wav and model.quantize_calibration_state() != "static":
+        state = model.calibrate_quantization_wav(params.calibration_wav)
+        print(f"int8_static calibration on {params.calibration_wav}: {state}")
     server = make_server(model, params.host, params.port,
                          params.max_batch, params.max_wait_ms,
                          embed_timeout_s=params.embed_timeout_s,

@@ -38,10 +38,14 @@ class SpeakerClassifier(nn.Module):
         self.fc2 = nn.Linear(emb, emb)
         self.b2 = nn.BatchNorm1d(emb, eps=cfg.bn_eps, momentum=cfg.bn_momentum)
 
-    def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """(B, T, F) normalized log-mel (+ valid lengths) -> (B, emb)."""
-        enc, enc_len = self.vgg(x, lengths)
+    def tail(self, enc: torch.Tensor, enc_len: Optional[torch.Tensor]) -> torch.Tensor:
+        """Everything after the encoder (JAX ``trunk_tail``): pooling -> fc1
+        -> fc2 -> ``b2``. The int8 encoders (``models/quantized.py``) share it."""
         pooled = self.pooling(enc, enc_len)
         e1 = F.relu(self.fc1(pooled))
         e2 = F.relu(self.fc2(e1))
         return self.b2(e2)
+
+    def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(B, T, F) normalized log-mel (+ valid lengths) -> (B, emb)."""
+        return self.tail(*self.vgg(x, lengths))

@@ -8,7 +8,8 @@ compiled by ``nvcc`` for ``sm_90a`` into its own shared library under
 
 A :class:`CudaKernel` counts its launches in a plain integer; the count
 moves only where the kernel is launched, so a run can show that its path
-went through the kernel.
+went through the kernel. A source may export several C entries (variants
+compiled from one template); ``launch`` takes the entry's name.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -49,7 +50,8 @@ class CudaKernel:
         self.argtypes = list(argtypes)
         self.launches = 0
         self.build_log = ""
-        self._fn = None
+        self._lib = None
+        self._fns: Dict[str, object] = {}
         self._lock = threading.Lock()
 
     @property
@@ -81,22 +83,26 @@ class CudaKernel:
             raise RuntimeError(f"nvcc failed on {self.source.name}:\n{out}")
         os.replace(self._tmp, self.library)
 
-    def _function(self):
+    def _function(self, symbol: Optional[str] = None):
+        symbol = symbol or self.symbol
         with self._lock:
-            if self._fn is None:
-                if self._stale():
-                    self.finish_build(self.start_build())
-                fn = getattr(ctypes.CDLL(str(self.library)), self.symbol)
+            if symbol not in self._fns:
+                if self._lib is None:
+                    if self._stale():
+                        self.finish_build(self.start_build())
+                    self._lib = ctypes.CDLL(str(self.library))
+                fn = getattr(self._lib, symbol)
                 fn.argtypes = self.argtypes
                 fn.restype = ctypes.c_int
-                self._fn = fn
-            return self._fn
+                self._fns[symbol] = fn
+            return self._fns[symbol]
 
-    def launch(self, *args) -> None:
-        """Call the C entry (which launches on the stream passed last) and
-        raise on a refused launch. ``cudaGetLastError`` is the C entry's
-        return value; a fault during the run shows at the next sync."""
-        rc = self._function()(*args)
+    def launch(self, *args, symbol: Optional[str] = None) -> None:
+        """Call the C entry ``symbol`` (default: the kernel's own; it launches
+        on the stream passed last) and raise on a refused launch.
+        ``cudaGetLastError`` is the C entry's return value; a fault during
+        the run shows at the next sync."""
+        rc = self._function(symbol)(*args)
         if rc != 0:
             raise RuntimeError(f"CUDA kernel {self.name} failed to launch: cudaError {rc}")
         with self._lock:

@@ -251,7 +251,13 @@ class MicroBatcher:
 
     def warmup(self, frame_lengths: Sequence[int]) -> None:
         """Run one forward for each bucket covering these lengths, so the
-        first real request does not pay cuDNN's first-call set-up."""
+        first real request does not pay cuDNN's first-call set-up.
+
+        The all-zeros warmup batches are DEGENERATE by construction: under
+        ``quantize="int8_static"`` they are refused as calibration batches
+        (``models/quantized.py``) and served on the dynamic int8 path, so
+        warmup can never bake scales; calibrate first
+        (``--calibration_wav`` / ``--int8_scales``) to warm the static path."""
         for t in sorted({bucket_for(t, self.buckets) for t in frame_lengths}):
             feat_dim = self.model.cfg.model.feature_size
             self.embed(torch.zeros((t, feat_dim)))
