@@ -5,16 +5,18 @@
 
 Builds the port's hand-written CUDA kernels from ``csrc/`` (one ``nvcc``
 each, all at once), holds each one against its plain PyTorch version on the
-card and times it beside its bound: B2 (log-mel), B1 (MHA pooling), B3 (the
-int8 3x3 conv at the seven paper-width conv shapes and edge shapes) and the
-two probes P1 (int8/bf16 matrix rate) and P2 (B3's full / dot-only /
-copy-only variants). It checks the card's path against the CPU path on the
-committed example checkpoint, in float32 and in int8_static (equal scales,
-equal int8 activations at every conv), then serves HTTP requests with two
-paper-width models (VGG4L, kernel_size 1024, 32 heads, DoubleMHA, embedding
-400; random weights from a fixed seed): the float32 one, and an
-``int8_static`` one calibrated on a seeded upload, whose embeddings are
-held to its own static forward with B3's plain version. The kernels' launch
+card and times it beside its bound: B2 (the FFT log-mel, at every radix
+branch of its plan), B1 (MHA pooling, which also refuses inputs that
+require grad), B3 (the int8 3x3 conv at the seven paper-width conv shapes
+and edge shapes) and the two probes P1 (int8/bf16 matrix rate) and P2
+(B3's full / dot-only / copy-only variants). It checks the card's path
+against the CPU path on the committed example checkpoint, in float32 and in
+int8_static (equal scales, equal int8 activations at every conv), then
+serves HTTP requests with two paper-width models (VGG4L, kernel_size 1024,
+32 heads, DoubleMHA, embedding 400; random weights from a fixed seed): the
+float32 one, and an ``int8_static`` one calibrated on a seeded upload,
+whose embeddings are held to its own static forward with B3's plain
+version. The kernels' launch
 counts, set to 0 just before each server is driven and read just after,
 show that each serving path went through its kernels. Any failed phase
 exits non-zero. The last line is
@@ -53,6 +55,8 @@ TOL_INT8_SERVED = 1e-6
 
 LOGMEL_CASES = ((1, 2.0), (1, 10.0), (1, 60.0), (8, 10.0))   # (batch, seconds)
 LOGMEL_MAIN = (1, 10.0)                                        # reported in the kernels line
+LOGMEL_OTHER = (dict(sample_rate=8000), dict(sample_rate=8000, n_fft=256),
+                dict(window_stride_s=0.0026), dict(n_fft=480), dict(n_fft=448), dict(n_fft=449))
 POOL_T = (7, 32, 63, 250)        # T' of the 100/500/1000/4000-frame serving buckets
 POOL_MAIN = 63
 POOL_B, POOL_H, POOL_DH = 8, 32, 160
@@ -122,6 +126,32 @@ def phase_build():
                 print(f"[build] {name}: {line.strip()}")
 
 
+def logmel_work(cfg, b: int, n: int):
+    """(bytes, operations) B2 needs for a (b, n) upload: audio in, features
+    out and its constants read once; the plan's butterflies and twiddle
+    multiplies (a direct radix-R stage: R outputs of R-1 complex
+    multiply-adds), the window, the split step, the magnitudes and the
+    band-limited mel sum, per frame."""
+    from doubleattentionspeakerverification_tpu_torch.dsp.features import (
+        dft_mel_constants, num_frames,
+    )
+    from doubleattentionspeakerverification_tpu_torch.ops import logmel
+
+    plan = logmel.fft_plan(cfg.n_fft)
+    header, table = logmel.pack_plan(plan)
+    bands = logmel.mel_bands(dft_mel_constants(cfg)[2])
+    band_bins = int((bands[:, 1] - bands[:, 0]).sum())
+    n_bins = cfg.n_fft // 2 + 1
+    frame_ops = cfg.n_fft + n_bins * (4 + (16 if plan.packed else 0)) + 2 * band_bins + 2 * cfg.n_mels
+    for r, ns in zip(plan.radices, plan.strides):
+        core = {4: 16, 2: 4}.get(r, 8 * r * (r - 1))
+        frame_ops += plan.size // r * (core + (6 * (r - 1) if ns > 1 else 0))
+    t = num_frames(n, cfg)
+    n_bytes = (4 * (b * n + b * t * cfg.n_mels + cfg.n_fft + band_bins)
+               + header.nbytes + table.nbytes + bands.nbytes)
+    return n_bytes, float(b * t * frame_ops)
+
+
 def phase_logmel():
     import torch
 
@@ -138,7 +168,6 @@ def phase_logmel():
     cfg = FeatureConfig()
     rng = np.random.default_rng(0)
     n_bins = cfg.n_fft // 2 + 1
-    const_elems = 2 * cfg.n_fft * n_bins + n_bins * cfg.n_mels
     window = torch.from_numpy(padded_stft_window(cfg.win_length, cfg.n_fft)).to(DEVICE)
     mel_t = torch.from_numpy(dft_mel_constants(cfg)[2]).to(DEVICE)
 
@@ -147,6 +176,14 @@ def phase_logmel():
                           center=False, return_complex=True)
         return torch.log(torch.clamp(spec.abs().transpose(1, 2) @ mel_t, min=cfg.log_floor))
 
+    def truth(w, c):
+        """The log-mel in float64 (torch.fft on the card), for the error of each version."""
+        t = num_frames(w.shape[-1], c)
+        win = torch.from_numpy(padded_stft_window(c.win_length, c.n_fft, np.float64)).to(DEVICE)
+        frames = preemphasize(w, c).double().unfold(-1, c.n_fft, c.hop_length)[..., :t, :] * win
+        mel = torch.fft.rfft(frames).abs() @ torch.from_numpy(dft_mel_constants(c)[2]).to(DEVICE).double()
+        return torch.log(torch.clamp(mel, min=c.log_floor))
+
     worst, main = 0.0, None
     for b, seconds in LOGMEL_CASES:
         n = int(seconds * cfg.sample_rate)
@@ -154,6 +191,7 @@ def phase_logmel():
         got = logmel.log_mel_cuda(wave, cfg)
         ref = logmel.log_mel_plain(wave, cfg)
         lib = library(wave)
+        exact = truth(wave, cfg)
         torch.cuda.synchronize()
         t = num_frames(n, cfg)
         check(got.shape == ref.shape == (b, t, cfg.n_mels), f"B2 shape {tuple(got.shape)}")
@@ -166,25 +204,32 @@ def phase_logmel():
         eager = eager_ms(lambda: logmel.log_mel_cuda(wave, cfg), 50)
         plain_ms = cuda_ms(lambda: logmel.log_mel_plain(wave, cfg), iters)
         library_ms = cuda_ms(lambda: library(wave), iters)
-        b_ms, b_by = bound_ms((b * n + b * t * cfg.n_mels + const_elems) * 4,
-                              2.0 * b * t * (cfg.n_fft * 2 * n_bins + n_bins * cfg.n_mels),
-                              FP32_OPS_PER_S)
+        b_ms, b_by = bound_ms(*logmel_work(cfg, b, n), FP32_OPS_PER_S)
+        dft_ms = 2.0 * b * t * (cfg.n_fft * 2 * n_bins + n_bins * cfg.n_mels) / FP32_OPS_PER_S * 1e3
         print(f"[B2 logmel] B={b} {seconds:g} s T={t}: max|d|={err:.3g} (tol {TOL_LOGMEL}); "
               f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
-              f"bound_ms={b_ms:.4f} ({b_by}); eager call {eager:.4f} ms; stft+matmul max|d|="
-              f"{float((lib - ref).abs().max()):.3g}")
+              f"bound_ms={b_ms:.5f} ({b_by}; the DFT's operation bound {dft_ms:.4f}); "
+              f"eager call {eager:.4f} ms; vs float64: kernel {float((got - exact).abs().max()):.3g}, "
+              f"plain {float((ref - exact).abs().max()):.3g}, stft+matmul {float((lib - exact).abs().max()):.3g}")
         if (b, seconds) == LOGMEL_MAIN:
             main = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
-    # front-ends of other upload rates and hops (hop 41 takes the scalar-load path)
-    for other in (FeatureConfig(sample_rate=8000), FeatureConfig(window_stride_s=0.0026)):
+    # every radix branch of the plan: 4 and 2 (n_fft 256 and 512), 3 and 5 (480),
+    # 7 (448), a prime n_fft as one direct stage (449), hop 41 (unaligned frames)
+    for kw in LOGMEL_OTHER:
+        other = FeatureConfig(**kw)
         wave = torch.from_numpy(np.stack([seeded_speech(rng, 3.0, other.sample_rate)
                                           for _ in range(2)])).to(DEVICE)
         err = float((logmel.log_mel_cuda(wave, other) - logmel.log_mel_plain(wave, other)).abs().max())
         check(math.isfinite(err) and err <= TOL_LOGMEL,
               f"B2 disagrees with its plain version at {other}: {err:.3g}")
         worst = max(worst, err)
-        print(f"[B2 logmel] B=2 3 s at {other.sample_rate} Hz, hop {other.hop_length}: "
-              f"max|d|={err:.3g} (tol {TOL_LOGMEL})")
+        plan = logmel.fft_plan(other.n_fft)
+        b_ms, b_by = bound_ms(*logmel_work(other, *wave.shape), FP32_OPS_PER_S)
+        print(f"[B2 logmel] B=2 3 s at {other.sample_rate} Hz, n_fft {other.n_fft}, hop "
+              f"{other.hop_length} (radices {plan.radices}{'' if plan.packed else ', unpacked'}): "
+              f"max|d|={err:.3g} (tol {TOL_LOGMEL}); kernel_ms="
+              f"{cuda_ms(lambda: logmel.log_mel_cuda(wave, other), 5):.4f} plain_ms="
+              f"{cuda_ms(lambda: logmel.log_mel_plain(wave, other), 5):.4f} bound_ms={b_ms:.5f} ({b_by})")
     return dict(max_abs_err=worst, **main)
 
 
@@ -237,7 +282,37 @@ def phase_pool():
               f"eager call {eager:.4f} ms; sdpa max|d|={float((lib - ref).abs().max()):.3g}")
         if tp == POOL_MAIN:
             main = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+    check_pool_refuses_grad()
     return dict(max_abs_err=worst, **main)
+
+
+def check_pool_refuses_grad():
+    """B1 has no backward yet: ``mha_pool`` on CUDA inputs that require grad
+    raises under grad mode, before any launch, and launches under no_grad."""
+    import torch
+
+    from doubleattentionspeakerverification_tpu_torch.ops import mha_pool
+
+    heads, d_h = 4, 8
+    for grad_of in ("ht", "query"):
+        ht = torch.ones((2, 5, heads * d_h), device=DEVICE, requires_grad=grad_of == "ht")
+        query = torch.ones((d_h, heads), device=DEVICE, requires_grad=grad_of == "query")
+        before = mha_pool.KERNEL.launches
+        try:
+            mha_pool.mha_pool(ht, query, None, heads)
+            raised = ""
+        except RuntimeError as e:
+            raised = str(e)
+        check("backward" in raised and mha_pool.KERNEL.launches == before,
+              f"B1 on CUDA inputs whose {grad_of} requires grad: raised {raised!r}, "
+              f"launches {before} -> {mha_pool.KERNEL.launches}")
+        with torch.no_grad():
+            out = mha_pool.mha_pool(ht, query, None, heads)
+        torch.cuda.synchronize()
+        check(mha_pool.KERNEL.launches == before + 1 and out.shape == (2, heads, d_h),
+              f"B1 under no_grad with {grad_of} requiring grad did not launch")
+    print("[B1 mha_pool] CUDA inputs that require grad (ht, then query) raise under grad mode "
+          "with no launch, and launch under no_grad")
 
 
 def phase_example_checkpoint():

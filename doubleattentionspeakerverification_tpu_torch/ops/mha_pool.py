@@ -5,7 +5,9 @@ package: per-head scores, a masked softmax over time and the per-head
 weighted sum in one pass over the encoder output, with nothing but the
 (B, H, d_h) contexts written back. The plain version is the einsum + masked
 softmax of ``models/poolings.py:mha_pool`` (JAX ``:115-123``), written in
-torch. The backward comes with the training slice.
+torch. The backward comes with the training slice: until then ``mha_pool``
+refuses an input off the CPU that requires grad under grad mode, since the
+kernel's output would carry no gradient.
 
 ``mha_pool`` takes the plain version only for tensors on the CPU; a CUDA
 tensor launches the kernel or raises.
@@ -88,4 +90,8 @@ def mha_pool(
     lengths = lengths.to(torch.int32)
     if ht.device.type == "cpu":
         return mha_pool_plain(ht4, q_t, lengths)
+    if torch.is_grad_enabled() and (ht.requires_grad or query.requires_grad):
+        raise RuntimeError(
+            "mha_pool: the CUDA kernel has no backward yet, so ht and query would get no "
+            "gradient; call it under torch.no_grad() or torch.inference_mode()")
     return mha_pool_cuda(ht4.contiguous(), q_t, lengths.contiguous())

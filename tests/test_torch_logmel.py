@@ -1,5 +1,8 @@
-"""The port's log-mel front-end (kernel B2's plain version, CMN/CMVN) against
-the JAX package's Pallas kernel (interpret mode) and XLA path."""
+"""The port's log-mel front-end (kernel B2's plain version and its FFT plan,
+CMN/CMVN) against the JAX package's Pallas kernel (interpret mode) and XLA
+path."""
+
+import functools
 
 import jax
 import numpy as np
@@ -36,32 +39,96 @@ def _wave(shape, seed):
     return (np.random.default_rng(seed).standard_normal(shape) * 0.1).astype(np.float32)
 
 
-@pytest.mark.parametrize(
-    "cfg_kw, n_samples, tile_frames",
-    [
-        (dict(), 16000, 64),
-        (dict(), 7000, 64),
-        # the non-default configs of tests/test_pallas_logmel.py
-        (dict(sample_rate=8000, n_fft=256), 12000, 32),
-        (dict(window_stride_s=0.00275), 6000, 32),
-        (dict(n_fft=480), 10000, 32),
-        (dict(), 2000, 128),
-        (dict(), 512 + 160 * 31, 32),
-        (dict(window_stride_s=0.0025), 8000, 32),
-    ],
-)
-def test_plain_logmel_matches_pallas_and_xla(cfg_kw, n_samples, tile_frames):
+CONFIGS = [
+    (dict(), 16000, 64),
+    (dict(), 7000, 64),
+    # the non-default configs of tests/test_pallas_logmel.py
+    (dict(sample_rate=8000, n_fft=256), 12000, 32),
+    (dict(window_stride_s=0.00275), 6000, 32),
+    (dict(n_fft=480), 10000, 32),
+    (dict(), 2000, 128),
+    (dict(), 512 + 160 * 31, 32),
+    (dict(window_stride_s=0.0025), 8000, 32),
+]
+# n_fft with a large prime factor (448 = 2^6 * 7) and prime (449): held to XLA only
+FFT_ONLY_CONFIGS = [(dict(n_fft=448), 8000, None), (dict(n_fft=449, window_stride_s=0.0026), 6000, None)]
+
+
+def _kw_key(cfg_kw):
+    return tuple(sorted(cfg_kw.items()))
+
+
+@functools.lru_cache(maxsize=None)
+def _references(kw_key, n_samples, tile_frames):
+    """(wave, XLA log-mel, Pallas log-mel or None) of one config, computed
+    once for the tests that share it."""
+    cfg = JaxFeatureConfig(**dict(kw_key))
     wave = _wave((2, n_samples), seed=n_samples)
-    ref_xla = np.asarray(jax.jit(jf.log_mel_spectrogram, static_argnums=1)(
-        wave, JaxFeatureConfig(**cfg_kw)))
-    ref_pallas = np.asarray(
-        log_mel_spectrogram_pallas(wave, JaxFeatureConfig(**cfg_kw), tile_frames=tile_frames)
-    )
+    ref_xla = np.asarray(jax.jit(jf.log_mel_spectrogram, static_argnums=1)(wave, cfg))
+    ref_pallas = None   # interpret mode: the module's autouse fixture
+    if tile_frames is not None:
+        ref_pallas = np.asarray(log_mel_spectrogram_pallas(wave, cfg, tile_frames=tile_frames))
+    return wave, ref_xla, ref_pallas
+
+
+@pytest.mark.parametrize("cfg_kw, n_samples, tile_frames", CONFIGS)
+def test_plain_logmel_matches_pallas_and_xla(cfg_kw, n_samples, tile_frames):
+    wave, ref_xla, ref_pallas = _references(_kw_key(cfg_kw), n_samples, tile_frames)
     cfg = FeatureConfig(**cfg_kw)
     got = logmel.log_mel_spectrogram_fused(torch.from_numpy(wave), cfg).numpy()
     assert got.shape == ref_xla.shape == (2, tf.num_frames(n_samples, cfg), cfg.n_mels)
     np.testing.assert_allclose(got, ref_pallas, atol=2e-4, rtol=1e-5)
     np.testing.assert_allclose(got, ref_xla, atol=2e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("cfg_kw, n_samples, tile_frames", CONFIGS + FFT_ONLY_CONFIGS)
+def test_fft_plan_reference_matches_pallas_and_xla(cfg_kw, n_samples, tile_frames):
+    """The kernel's algorithm (host-built plan, twiddles, mel bands, run stage
+    by stage in torch float32) against JAX: the plan is what the card runs."""
+    wave, ref_xla, ref_pallas = _references(_kw_key(cfg_kw), n_samples, tile_frames)
+    cfg = FeatureConfig(**cfg_kw)
+    got = logmel.log_mel_fft_reference(torch.from_numpy(wave), cfg).numpy()
+    assert got.shape == ref_xla.shape == (2, tf.num_frames(n_samples, cfg), cfg.n_mels)
+    np.testing.assert_allclose(got, ref_xla, atol=2e-4, rtol=1e-5)
+    if ref_pallas is not None:
+        np.testing.assert_allclose(got, ref_pallas, atol=2e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("n_fft", [256, 400, 448, 449, 480, 512, 1024, 2, 3])
+def test_fft_plan_factors_and_twiddles(n_fft):
+    plan = logmel.fft_plan(n_fft)
+    assert plan.packed == (n_fft % 2 == 0)
+    assert plan.size == (n_fft // 2 if plan.packed else n_fft)
+    assert int(np.prod(plan.radices, dtype=np.int64)) * (2 if plan.packed else 1) == n_fft
+    assert all(r in (2, 4) or all(r % p for p in range(2, r)) for r in plan.radices)
+
+    def exact(k, n):
+        return np.exp(-2j * np.pi * np.asarray(k, np.float64) / n).astype(np.complex64)
+
+    header, table = logmel.pack_plan(plan)
+    assert header[0] == len(plan.radices)
+    ns = 1
+    for s, radix in enumerate(plan.radices):
+        r, stride, tw_off, root_off = header[2 + 4 * s: 6 + 4 * s]
+        assert (r, stride) == (radix, ns)
+        twiddles = exact(np.outer(np.arange(radix), np.arange(ns)), ns * radix)
+        np.testing.assert_array_equal(table[tw_off: tw_off + radix * ns], twiddles.reshape(-1))
+        np.testing.assert_array_equal(table[root_off: root_off + radix], exact(np.arange(radix), radix))
+        ns *= radix
+    if plan.packed:
+        split = table[header[1]: header[1] + plan.size + 1]
+        np.testing.assert_array_equal(split, exact(np.arange(plan.size + 1), n_fft))
+
+
+@pytest.mark.parametrize("cfg_kw", [dict(), dict(sample_rate=8000, n_fft=256), dict(n_fft=480),
+                                    dict(n_fft=449), dict(n_fft=2048, n_mels=128)])
+def test_mel_bands_cover_the_nonzero_filters_exactly(cfg_kw):
+    mel_t = tf.dft_mel_constants(FeatureConfig(**cfg_kw))[2]
+    bands = logmel.mel_bands(mel_t)
+    inside = np.zeros(mel_t.shape, bool)
+    for m, (lo, hi) in enumerate(bands):
+        inside[lo:hi, m] = True
+    np.testing.assert_array_equal(inside, mel_t != 0)
 
 
 def test_constants_match_jax():

@@ -90,6 +90,42 @@ def test_cuda_wrapper_refuses_other_tensors():
     assert tp.KERNEL.launches == 0
 
 
+@pytest.mark.parametrize("grad_of", ["ht", "query"])
+def test_mha_pool_refuses_grad_off_the_cpu(grad_of):
+    """The CUDA kernel has no backward yet: off the CPU, an input that
+    requires grad is refused under grad mode before the kernel's wrapper is
+    reached; under no_grad / inference_mode the call goes on to the wrapper,
+    which refuses what is not a CUDA tensor."""
+    ht = torch.zeros((2, 5, 32), device="meta", requires_grad=grad_of == "ht")
+    query = torch.zeros((8, 4), device="meta", requires_grad=grad_of == "query")
+    with pytest.raises(RuntimeError, match="no backward"):
+        tp.mha_pool(ht, query, None, 4)
+    for mode in (torch.no_grad, torch.inference_mode):
+        with mode(), pytest.raises(ValueError, match="needs CUDA"):
+            tp.mha_pool(ht, query, None, 4)
+    assert tp.KERNEL.launches == 0
+
+
+def test_plain_keeps_autograd_on_the_cpu():
+    """On the CPU the plain version carries the gradient, equal to jax.grad
+    through the XLA pooling."""
+    b, t, heads, d_h = 3, 20, 4, 8
+    params, ht, _ = _setup(b, t, heads, d_h, None, seed=11)
+    lens = np.array([20, 13, 1], np.int32)
+    g = np.random.default_rng(12).standard_normal((b, heads, d_h)).astype(np.float32)
+    cfg = JaxModelConfig(heads_number=heads)
+
+    def loss(q, x):
+        return (jax_mha_pool({**params, "query": q}, x, lens, cfg)[0] * g).sum()
+
+    ref_q, ref_ht = jax.grad(loss, argnums=(0, 1))(params["query"], ht)
+    q_t = torch.tensor(np.array(params["query"]), requires_grad=True)
+    ht_t = torch.tensor(ht, requires_grad=True)
+    (tp.mha_pool(ht_t, q_t, torch.from_numpy(lens), heads) * torch.from_numpy(g)).sum().backward()
+    np.testing.assert_allclose(q_t.grad.numpy(), np.asarray(ref_q), atol=1e-5)
+    np.testing.assert_allclose(ht_t.grad.numpy(), np.asarray(ref_ht), atol=1e-5)
+
+
 @pytest.mark.parametrize("all_masked_row", [False, True])
 def test_masked_ops_match_jax(all_masked_row):
     rng = np.random.default_rng(7)
