@@ -7,9 +7,10 @@ Builds the port's hand-written CUDA kernels from ``csrc/`` (one ``nvcc``
 each, all at once), holds each one against its plain PyTorch version on the
 card and times it beside its bound: B2 (the FFT log-mel, at every radix
 branch of its plan), B1 (MHA pooling, which also refuses inputs that
-require grad), B3 (the int8 3x3 conv at the seven paper-width conv shapes
-and edge shapes) and the two probes P1 (int8/bf16 matrix rate) and P2
-(B3's full / dot-only / copy-only variants). It checks the card's path
+require grad), B3 (the int8 3x3 conv on ``wgmma``, at the seven
+paper-width conv shapes and edge shapes) and the two probes P1 (the
+``wgmma`` int8/bf16 matrix rate) and P2 (B3's full / dot-only / copy-only
+modes). It checks the card's path
 against the CPU path on the committed example checkpoint, in float32 and in
 int8_static (equal scales, equal int8 activations at every conv), then
 serves HTTP requests with two paper-width models (VGG4L, kernel_size 1024,
@@ -68,9 +69,12 @@ CONV_PAPER = (           # (name, T, F, Cin, Cout) of the seven B3 convs of VGG4
     ("conv32", 250, 20, 512, 512), ("conv41", 125, 10, 512, 1024),
     ("conv42", 125, 10, 1024, 1024),
 )
-CONV_EDGE = (            # (B, T, F, Cin, Cout): ragged last tile, T=1, tiny F, small Cin/Cout
+CONV_EDGE = (            # (B, T, F, Cin, Cout): ragged last tile, T=1, tiny F, small Cin/Cout,
     (3, 37, 40, 128, 256), (2, 13, 10, 96, 200), (1, 1, 80, 128, 128), (2, 1, 5, 8, 16),
     (2, 20, 5, 8, 16), (2, 50, 80, 2, 16), (2, 50, 80, 3, 8), (2, 50, 80, 4, 32),
+    # Cin 1; a one-channel last chunk with an N tail past 256; F > 258, where
+    # the patch's three bands no longer overlap
+    (2, 9, 7, 1, 3), (1, 3, 80, 33, 264), (1, 4, 300, 16, 24),
 )
 
 
@@ -122,7 +126,8 @@ def phase_build():
     print(f"[build] {len(logs)} kernels built and loaded in {time.perf_counter() - t0:.2f} s")
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or ("spill" in line and "0 bytes spill" not in line):
+            if ("registers" in line or ("spill" in line and "0 bytes spill" not in line)
+                    or "wgmma" in line):
                 print(f"[build] {name}: {line.strip()}")
 
 

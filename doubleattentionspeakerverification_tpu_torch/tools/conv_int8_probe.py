@@ -7,9 +7,10 @@ im2col copies against the matrix products. Here the library built from
 three modes:
 
 - ``full``: kernel B3 itself (int8 out), bit for bit;
-- ``dot_only``: the tensor-core products on a patch that is never staged
-  from device memory (the result means nothing; only its time counts);
-- ``copy_only``: the staging of the halo patches and weights, no products.
+- ``dot_only``: the ``wgmma`` products with the weights fetched but the
+  halo patch never filled (the result means nothing; only its time counts);
+- ``copy_only``: the producer's staging of weights and patches through the
+  ring, each slot released with no products.
 
 They are timed at B=16, T=500, F=40, C=256 -> 256 beside the plain version
 and one library route (im2col + ``torch._int_mm`` + the torch epilogue). The

@@ -2,7 +2,8 @@
 
 The counterpart of the JAX package's ``tools/_mxu_rate.py``, which timed a
 tiled Pallas matmul on the TPU's matrix unit at M = K = N = 4096. Here a
-hand-written tiled ``mma.sync`` GEMM, ``c = a @ bt^T``, runs int8 -> int32
+hand-written ``wgmma`` GEMM fed by TMA through a ring of K slabs,
+``c = a @ bt^T``, runs int8 -> int32
 and bf16 -> float32 at the same size, timed beside its plain version (a
 float64 ``torch.matmul``: exact for int8, since every sum is an integer
 below 4096·127² < 2⁵³) and beside one PyTorch call (``torch._int_mm``, or
@@ -28,6 +29,7 @@ from .timing import BF16_OPS_PER_S, INT8_OPS_PER_S, bound_ms, cuda_ms, eager_ms
 _p, _i = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("mm_probe", "mm_probe.cu", "mm_probe", [_p, _p, _p, _i, _i, _i, _i, _p])
 SIZE = 4096
+BM, BN, BK_BYTES = 128, 256, 128   # the kernel's tile of c and its K slab (csrc/mm_probe.cu)
 KINDS = ("int8", "bfloat16")
 
 
@@ -37,19 +39,27 @@ def mm_probe_plain(a: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
     return c.to(torch.int32 if a.dtype == torch.int8 else torch.float32)
 
 
-def mm_probe_cuda(a: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
-    if a.device.type != "cuda" or bt.device.type != "cuda":
-        raise ValueError("mm_probe_cuda needs CUDA tensors")
+def _check(a: torch.Tensor, bt: torch.Tensor) -> None:
+    """Raises on the types and shapes the kernel does not take (on any
+    device: the tests hold it to that on ``meta`` tensors)."""
     if a.dtype != bt.dtype or a.dtype not in (torch.int8, torch.bfloat16):
         raise ValueError(f"a and bt must both be int8 or bfloat16, got {a.dtype}, {bt.dtype}")
     if a.dim() != 2 or bt.dim() != 2 or a.shape[1] != bt.shape[1]:
         raise ValueError(f"a (M, K) and bt (N, K) expected, got {tuple(a.shape)}, {tuple(bt.shape)}")
     m, k = a.shape
+    if m % BM or bt.shape[0] % BN or (k * a.element_size()) % BK_BYTES or not (m and k and bt.shape[0]):
+        raise ValueError(f"M must be a multiple of {BM}, N of {BN} and K of {BK_BYTES} bytes, "
+                         f"got M={m}, N={bt.shape[0]}, K={k} ({a.dtype})")
+
+
+def mm_probe_cuda(a: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
+    if a.device.type != "cuda" or bt.device.type != "cuda":
+        raise ValueError("mm_probe_cuda needs CUDA tensors")
+    _check(a, bt)
+    if not (a.is_contiguous() and bt.is_contiguous()) or a.data_ptr() % 16 or bt.data_ptr() % 16:
+        raise ValueError("mm_probe_cuda takes contiguous, 16-byte aligned tensors")
+    m, k = a.shape
     n = bt.shape[0]
-    if m % 128 or n % 128 or (k * a.element_size()) % 64:
-        raise ValueError("M and N must be multiples of 128 and K a multiple of 64 bytes")
-    if not (a.is_contiguous() and bt.is_contiguous()):
-        raise ValueError("mm_probe_cuda takes contiguous tensors")
     is_int8 = a.dtype == torch.int8
     c = torch.empty((m, n), dtype=torch.int32 if is_int8 else torch.float32, device=a.device)
     KERNEL.launch(a.data_ptr(), bt.data_ptr(), c.data_ptr(), m, n, k, int(is_int8),

@@ -1,7 +1,9 @@
 """Kernel B3's plain version (``ops/conv_int8.py``) against the JAX package's
 fused int8 conv: the Pallas kernel in interpret mode and its XLA reference,
 on the edge cases of ``tests/test_conv_int8_pallas.py`` plus an 8 -> 256
-case; the probes' plain versions; and the CPU dispatch of the wrappers.
+case; the card kernel's tiling, modelled in int64 torch, against both; the
+packed weights' layout; the probes' plain versions; the wrappers' shape
+checks; and the CPU dispatch of the wrappers.
 
 XLA on the CPU contracts the epilogue ``acc * mult + bias`` into an FMA
 (measured: about a quarter of float32 results differ by one ulp from a
@@ -113,13 +115,91 @@ def test_plain_sums_are_exact_at_wide_channels():
 
 
 def test_pack_weights_layout():
+    """The packed layout unpacks back to w9; input channels past Cin and
+    output channels past Cout are zero."""
     rng = np.random.default_rng(2)
-    w9 = torch.from_numpy(rng.integers(-127, 128, (9, 40, 6)).astype(np.int8))
+    w9 = torch.from_numpy(rng.integers(-127, 128, (9, 40, 130)).astype(np.int8))
     wp = conv_int8.pack_weights(w9)
-    assert wp.shape == (2, 9, 6, 32) and wp.is_contiguous()
-    unpacked = wp.permute(1, 0, 3, 2).reshape(9, 64, 6)   # (tap, chunk*32 + c, cout)
-    assert torch.equal(unpacked[:, :40], w9)
+    assert wp.shape == conv_int8.packed_shape(40, 130) == (2, 2, 9, 16, 2, 8, 16)
+    assert wp.is_contiguous()
+    # (tile, chunk, tap, group, half, row, byte) -> (tap, chunk*32 + half*16 + byte, tile*128 + group*8 + row)
+    unpacked = wp.permute(2, 1, 4, 6, 0, 3, 5).reshape(9, 64, 256)
+    assert torch.equal(unpacked[:, :40, :130], w9)
     assert int(unpacked[:, 40:].abs().sum()) == 0          # channels past Cin are zero
+    assert int(unpacked[:, :, 130:].abs().sum()) == 0      # outputs past Cout are zero
+
+
+# CASES plus Cin 1, 3 and 33, Cout 200 (a ragged second N tile) and F 300
+# (the patch's three separate bands, F > BM + 2)
+TILING_CASES = CASES + [
+    (2, 9, 7, 1, 3, "float32"),
+    (1, 11, 5, 3, 16, "float32"),
+    (1, 3, 80, 33, 200, "float32"),
+    (1, 3, 300, 8, 16, "float32"),
+]
+
+
+@pytest.mark.parametrize("b,t,f,cin,cout,out_kind", TILING_CASES)
+def test_kernel_tiling_is_exact(b, t, f, cin, cout, out_kind):
+    """``conv3x3_int8_tiled`` (the card kernel's tiles, patch bands, tap
+    offsets, chunk order and N tail, in int64) equals the plain version bit
+    for bit, and the Pallas kernel in interpret mode: its window sums
+    exactly at the float32 cases (with mult 1 and bias 2^23 the epilogue
+    returns 2^23 + acc, exact for |acc| < 2^23 whether or not XLA contracts
+    it into an FMA), its int8 and bfloat16 outputs by the module's rule for
+    that contraction. Each Pallas call repeats the shapes, types and
+    out_kind of a call made before in this module or this test, so it is
+    compiled once."""
+    q, w, mult, bias = _mk(b, t, f, cin, cout)
+    tq, w9 = torch.from_numpy(q), torch.from_numpy(w.reshape(9, cin, cout))
+    wp = conv_int8.pack_weights(w9)
+    tm, tb = torch.from_numpy(mult), torch.from_numpy(bias)
+    got = conv_int8.conv3x3_int8_tiled(tq, wp, tm, tb, out_kind)
+    assert torch.equal(got, conv_int8.conv3x3_int8_plain(tq, w9, tm, tb, out_kind))
+    pallas = functools.partial(conv3x3_int8_fused, q, w.reshape(9, cin, cout),
+                               out_kind=out_kind, interpret=True)
+    if out_kind != "float32":
+        got = got.float().numpy() if out_kind == "bfloat16" else got.numpy()
+        _assert_matches(got, pallas(mult[None], bias[None]), out_kind)
+        return
+    one, shift = np.ones(cout, np.float32), np.full(cout, 2.0 ** 23, np.float32)
+    sums = conv_int8.conv3x3_int8_tiled(tq, wp, torch.from_numpy(one), torch.from_numpy(shift),
+                                        "float32").numpy()
+    want = np.asarray(pallas(one[None], shift[None]))
+    assert np.abs(want - 2.0 ** 23).max() < 2.0 ** 22
+    np.testing.assert_array_equal(sums, want)
+
+
+def test_wrappers_refuse_shapes_their_kernels_do_not_take():
+    """The shape checks of B3's and P1's wrappers, on meta tensors (no data,
+    no device): B3 takes any Cin and Cout with weights packed for them; P1
+    takes M a multiple of 128, N of 256 and K of 128 bytes."""
+    meta = dict(device="meta")
+    q = torch.zeros((2, 5, 7, 33), dtype=torch.int8, **meta)
+    mult = torch.zeros(200, **meta)
+    good = torch.zeros(conv_int8.packed_shape(33, 200), dtype=torch.int8, **meta)
+    conv_int8._check(q, good, mult, mult)
+    for bad in (torch.zeros(conv_int8.packed_shape(32, 200), dtype=torch.int8, **meta),
+                torch.zeros(conv_int8.packed_shape(33, 257), dtype=torch.int8, **meta),
+                good.to(torch.int16)):
+        with pytest.raises(ValueError, match="w_packed"):
+            conv_int8._check(q, bad, mult, mult)
+    with pytest.raises(ValueError, match="mult and bias"):
+        conv_int8._check(q, good, mult, torch.zeros(199, **meta))
+    with pytest.raises(ValueError, match="CUDA"):
+        conv_int8.conv3x3_int8(q, torch.zeros((9, 33, 200), dtype=torch.int8, **meta), mult, mult)
+
+    def mats(m, n, k, dtype=torch.int8):
+        return torch.zeros((m, k), dtype=dtype, **meta), torch.zeros((n, k), dtype=dtype, **meta)
+
+    rate_probe._check(*mats(128, 256, 128))
+    rate_probe._check(*mats(256, 512, 64, torch.bfloat16))
+    for m, n, k, dtype in ((64, 256, 128, torch.int8), (128, 128, 128, torch.int8),
+                           (128, 256, 96, torch.int8), (128, 256, 32, torch.bfloat16)):
+        with pytest.raises(ValueError, match="multiple"):
+            rate_probe._check(*mats(m, n, k, dtype))
+    with pytest.raises(ValueError, match="CUDA"):
+        rate_probe.mm_probe(*mats(128, 256, 128))
 
 
 def test_cpu_tensors_take_the_plain_version_and_never_build(monkeypatch):
