@@ -6,8 +6,12 @@
 Builds the port's hand-written CUDA kernels from ``csrc/`` (one ``nvcc``
 each, all at once), holds each one against its plain PyTorch version on the
 card and times it beside its bound: B2 (the FFT log-mel, at every radix
-branch of its plan), B1 (MHA pooling, which also refuses inputs that
-require grad), B3 (the int8 3x3 conv on ``wgmma``, at the seven
+branch of its plan), B1 (MHA pooling, in float32 and bfloat16 at the four
+serving buckets, with a cold-L2 time at the longest and, at each, the times
+of other launches than the plan's, and at edge batches: rows of length 0
+and below 0, rows split over a 2-rank cluster with lengths below 2, a head
+of 5 values and one of 512; it also refuses inputs that require grad), B3 (the
+int8 3x3 conv on ``wgmma``, at the seven
 paper-width conv shapes and edge shapes) and the two probes P1 (the
 ``wgmma`` int8/bf16 matrix rate) and P2 (B3's full / dot-only / copy-only
 modes). It checks the card's path
@@ -61,6 +65,24 @@ LOGMEL_OTHER = (dict(sample_rate=8000), dict(sample_rate=8000, n_fft=256),
 POOL_T = (7, 32, 63, 250)        # T' of the 100/500/1000/4000-frame serving buckets
 POOL_MAIN = 63
 POOL_B, POOL_H, POOL_DH = 8, 32, 160
+POOL_EDGE = (            # (B, T, H, d_h, lengths), each in float32 and bfloat16:
+    # paper width with length-0 rows (-3 counts as 0), one above T; one block a row
+    (8, 50, 32, 160, (0, 1, 3, 7, 50, 9, -3, 57)),
+    # spans of 15 values: not 16-byte aligned, so plain loads
+    (3, 20, 3, 5, (20, 0, 6)),
+    # the largest head the wrapper takes
+    (4, 40, 4, 512, (40, 0, 5, 33)),
+    # T and a launch past the plan's cluster thresholds, so a cluster of R = 2
+    # ranks a row: lengths 0 and below, 1 (below R: the second rank has no
+    # step), odd, above T
+    (8, 200, 8, 160, (0, 1, 7, 199, 250, -1, 200, 33)),
+    (3, 201, 3, 5, (201, 1, 0)),
+    (2, 240, 4, 512, (239, 1)),
+)
+POOL_SINGLE = (250, 1000)        # T' of one upload alone (B=1): 10 s, and a 40 s file
+# (R, G, S) launches timed beside the plan's (pool_sweep)
+POOL_SWEEP = ((1, 4, 1), (1, 2, 1), (1, 2, 2), (1, 1, 4), (1, 1, 8), (2, 1, 4), (2, 1, 8))
+POOL_FLUSH_BYTES = 64 * 2**20    # written between launches for B1's cold-L2 time
 SERVE_SECONDS = (1.0, 2.5, 4.0, 4.5, 8.0, 8.5, 9.0, 12.0)
 CONV_B = 8               # 8 uploads of 10 s: T = 1000 frames at the first conv
 CONV_PAPER = (           # (name, T, F, Cin, Cout) of the seven B3 convs of VGG4L k=1024
@@ -238,6 +260,86 @@ def phase_logmel():
     return dict(max_abs_err=worst, **main)
 
 
+def pool_check(ht4, q_t, lens, what):
+    """B1 against its plain version on the same inputs; rows whose length
+    is 0 or below must come out exactly zero. Returns max |d|."""
+    import torch
+
+    from doubleattentionspeakerverification_tpu_torch.ops import mha_pool
+
+    got = mha_pool.mha_pool_cuda(ht4, q_t, lens)
+    ref = mha_pool.mha_pool_plain(ht4, q_t, lens)
+    torch.cuda.synchronize()
+    check(got.shape == ref.shape, f"B1 shape {tuple(got.shape)} at {what}")
+    err = float((got - ref).abs().max())
+    check(math.isfinite(err) and err <= TOL_POOL,
+          f"B1 disagrees with its plain version at {what}: max|d| {err:.3g}")
+    empty = lens <= 0
+    check(bool((got[empty] == 0).all()), f"B1 rows of length <= 0 are not zero at {what}")
+    return err
+
+
+def pool_plan(b, tp, heads, d_h, dtype):
+    """The launch B1 makes for these shapes. The kernel's launch bounds (256
+    threads, 2 blocks an SM) cap it at 128 registers a thread, so an SM holds
+    at least 65536 / (128 * threads) of its blocks (shared memory is at most
+    17 KB a block)."""
+    import torch
+
+    from doubleattentionspeakerverification_tpu_torch.ops import mha_pool
+
+    plan = mha_pool.launch_plan(b, tp, heads, d_h, torch.finfo(dtype).bits // 8)
+    threads = 32 * plan["heads_per_block"] * plan["warps_per_head"]
+    resident = torch.cuda.get_device_properties(0).multi_processor_count * min(
+        32, 65536 // (128 * threads))
+    return (f"G={plan['heads_per_block']} S={plan['warps_per_head']} R={plan['ranks']} "
+            f"chains of {plan['chain_lanes']} lanes, "
+            f"{'16-byte' if plan['vec'] > 1 else 'single-value'} loads, {plan['smem']} B shared "
+            f"a block, {plan['blocks']} blocks of {threads} threads, at least {resident} resident "
+            f"({'one wave' if resident >= plan['blocks'] else 'more than one wave'})")
+
+
+def pool_launch(ht4, q_t, lens, out, ranks, heads_per_block, warps_per_head):
+    """One B1 launch with the given R, G, S instead of the plan's: what the
+    plan's choice is measured against. Not a path of the port."""
+    import torch
+
+    from doubleattentionspeakerverification_tpu_torch.ops import mha_pool
+
+    b, t, heads, d_h = ht4.shape
+    plan = mha_pool.launch_plan(b, t, heads, d_h, ht4.element_size(), ht4.data_ptr(),
+                                q_t.data_ptr())
+    mha_pool.KERNEL.launch(
+        ht4.data_ptr(), q_t.data_ptr(), lens.data_ptr(), out.data_ptr(), b, t, heads, d_h,
+        int(ht4.dtype == torch.bfloat16), heads_per_block, warps_per_head, ranks, plan["vec"],
+        torch.cuda.current_stream().cuda_stream)
+
+
+def pool_sweep(ht4, q_t, lens, ms):
+    """B1's time at these inputs with the plan's launch, with all lengths 0
+    (launch, setup, combine and output, no step loaded) and all lengths 1, and
+    with each launch of POOL_SWEEP (each also held to the plain version)."""
+    import torch
+
+    from doubleattentionspeakerverification_tpu_torch.ops import mha_pool
+    from doubleattentionspeakerverification_tpu_torch.tools.timing import cuda_ms
+
+    times = {}
+    for name, lengths in (("lengths 0", torch.zeros_like(lens)), ("lengths 1", torch.ones_like(lens))):
+        times[name] = cuda_ms(lambda: mha_pool.mha_pool_cuda(ht4, q_t, lengths), 50)
+    ref = mha_pool.mha_pool_plain(ht4, q_t, lens)
+    out = torch.empty_like(ref)
+    for r, g, s in POOL_SWEEP:
+        pool_launch(ht4, q_t, lens, out, r, g, s)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        check(math.isfinite(err) and err <= TOL_POOL,
+              f"B1 launched with R={r} G={g} S={s} disagrees with its plain version: {err:.3g}")
+        times[f"R{r}G{g}S{s}"] = cuda_ms(lambda: pool_launch(ht4, q_t, lens, out, r, g, s), 50)
+    print(f"[B1 mha_pool] T'={ht4.shape[1]} sweep: kernel_ms={ms:.5f} with the plan's launch; "
+          + ", ".join(f"{k} {v:.5f}" for k, v in times.items()))
+
+
 def phase_pool():
     import torch
     import torch.nn.functional as F
@@ -257,8 +359,11 @@ def phase_pool():
             (rng.standard_normal((POOL_H, POOL_DH)) * scale).astype(np.float32)).to(DEVICE)
         lens_np = np.r_[tp, 1, rng.integers(1, tp + 1, POOL_B - 2)].astype(np.int32)
         lens = torch.from_numpy(lens_np).to(DEVICE)
-        got = mha_pool.mha_pool_cuda(ht4, q_t, lens)
+        err = pool_check(ht4, q_t, lens, f"T'={tp} float32")
         ref = mha_pool.mha_pool_plain(ht4, q_t, lens)
+        ht_bf = ht4.to(torch.bfloat16)
+        err_bf = pool_check(ht_bf, q_t, lens, f"T'={tp} bfloat16")
+        worst = max(worst, err, err_bf)
         # yardstick: SDPA with one query per head and the length mask
         q4 = q_t[None, :, None, :].expand(POOL_B, -1, -1, -1).contiguous()
         kv = ht4.permute(0, 2, 1, 3).contiguous()
@@ -268,12 +373,8 @@ def phase_pool():
             return F.scaled_dot_product_attention(q4, kv, kv, attn_mask=mask, scale=1.0)
 
         lib = library()[:, :, 0]
-        torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
-        check(math.isfinite(err) and err <= TOL_POOL,
-              f"B1 disagrees with its plain version at T'={tp}: {err:.3g}")
-        worst = max(worst, err)
         ms = cuda_ms(lambda: mha_pool.mha_pool_cuda(ht4, q_t, lens), 50)
+        bf_ms = cuda_ms(lambda: mha_pool.mha_pool_cuda(ht_bf, q_t, lens), 50)
         eager = eager_ms(lambda: mha_pool.mha_pool_cuda(ht4, q_t, lens), 100)
         plain_ms = cuda_ms(lambda: mha_pool.mha_pool_plain(ht4, q_t, lens), 20)
         library_ms = cuda_ms(library, 20)
@@ -282,11 +383,58 @@ def phase_pool():
             (valid * POOL_H * POOL_DH + q_t.numel() + POOL_B + POOL_B * POOL_H * POOL_DH) * 4,
             4.0 * valid * POOL_H * POOL_DH, FP32_OPS_PER_S)
         print(f"[B1 mha_pool] B={POOL_B} T'={tp} H={POOL_H} d_h={POOL_DH} lengths={lens_np.tolist()}: "
-              f"max|d|={err:.3g} (tol {TOL_POOL}); kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"library_ms={library_ms:.4f} bound_ms={b_ms:.5f} ({b_by}); "
-              f"eager call {eager:.4f} ms; sdpa max|d|={float((lib - ref).abs().max()):.3g}")
+              f"max|d|={err:.3g} (tol {TOL_POOL}); kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} "
+              f"library_ms={library_ms:.5f} bound_ms={b_ms:.5f} ({b_by}); "
+              f"eager call {eager:.4f} ms; sdpa max|d|={float((lib - ref).abs().max()):.3g}; "
+              f"bfloat16 ht max|d|={err_bf:.3g} kernel_ms={bf_ms:.5f}")
+        print(f"[B1 mha_pool] T'={tp} float32: {pool_plan(POOL_B, tp, POOL_H, POOL_DH, torch.float32)}; "
+              f"bfloat16: {pool_plan(POOL_B, tp, POOL_H, POOL_DH, torch.bfloat16)}")
+        pool_sweep(ht4, q_t, lens, ms)
         if tp == POOL_MAIN:
             main = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+        if tp == max(POOL_T):
+            # cold L2: a 64 MB write between launches, timed alone and subtracted
+            flush = torch.empty(POOL_FLUSH_BYTES // 4, device=DEVICE)
+
+            def both():
+                flush.fill_(1.0)
+                mha_pool.mha_pool_cuda(ht4, q_t, lens)
+
+            with_flush = cuda_ms(both, 20)
+            flush_ms = cuda_ms(lambda: flush.fill_(1.0), 20)
+            print(f"[B1 mha_pool] T'={tp} cold L2: kernel_ms={with_flush - flush_ms:.5f} "
+                  f"({with_flush:.5f} with a {POOL_FLUSH_BYTES >> 20} MB write before each "
+                  f"launch, the write alone {flush_ms:.5f}); bound_ms={b_ms:.5f}")
+            del flush
+    for tp in POOL_SINGLE:
+        # one upload alone, every step valid: the plan splits it over a cluster
+        ht4 = torch.from_numpy(
+            rng.standard_normal((1, tp, POOL_H, POOL_DH)).astype(np.float32)).to(DEVICE)
+        q_t = torch.from_numpy(
+            (rng.standard_normal((POOL_H, POOL_DH)) * scale).astype(np.float32)).to(DEVICE)
+        lens = torch.full((1,), tp, dtype=torch.int32, device=DEVICE)
+        err = pool_check(ht4, q_t, lens, f"B=1 T'={tp} float32")
+        worst = max(worst, err)
+        ms = cuda_ms(lambda: mha_pool.mha_pool_cuda(ht4, q_t, lens), 50)
+        b_ms, b_by = bound_ms((tp * POOL_H * POOL_DH + q_t.numel() + 1 + POOL_H * POOL_DH) * 4,
+                              4.0 * tp * POOL_H * POOL_DH, FP32_OPS_PER_S)
+        print(f"[B1 mha_pool] B=1 T'={tp} H={POOL_H} d_h={POOL_DH}: max|d|={err:.3g} "
+              f"(tol {TOL_POOL}); kernel_ms={ms:.5f} bound_ms={b_ms:.5f} ({b_by}); "
+              f"{pool_plan(1, tp, POOL_H, POOL_DH, torch.float32)}")
+        pool_sweep(ht4, q_t, lens, ms)
+    rng = np.random.default_rng(8)
+    for b, tp, heads, d_h, lengths in POOL_EDGE:
+        ht4 = torch.from_numpy(rng.standard_normal((b, tp, heads, d_h)).astype(np.float32)).to(DEVICE)
+        q_t = torch.from_numpy((rng.standard_normal((heads, d_h)) / math.sqrt(heads))
+                               .astype(np.float32)).to(DEVICE)
+        lens = torch.tensor(lengths, dtype=torch.int32, device=DEVICE)
+        for dtype in (torch.float32, torch.bfloat16):
+            what = f"B={b} T={tp} H={heads} d_h={d_h} {str(dtype)[6:]}"
+            err = pool_check(ht4.to(dtype), q_t, lens, what)
+            worst = max(worst, err)
+            print(f"[B1 mha_pool] {what} lengths={list(lengths)}: max|d|={err:.3g} "
+                  f"(tol {TOL_POOL}), rows of length <= 0 exactly zero; "
+                  f"{pool_plan(b, tp, heads, d_h, dtype)}")
     check_pool_refuses_grad()
     return dict(max_abs_err=worst, **main)
 

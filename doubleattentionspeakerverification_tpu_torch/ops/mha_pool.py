@@ -10,26 +10,81 @@ refuses an input off the CPU that requires grad under grad mode, since the
 kernel's output would carry no gradient.
 
 ``mha_pool`` takes the plain version only for tensors on the CPU; a CUDA
-tensor launches the kernel or raises.
+tensor launches the kernel or raises. ``mha_pool_split_plain`` models the
+kernel's own decomposition (each batch row's valid steps split over the
+ranks of a cluster and the warp chains of a rank, partial states combined)
+for the tests; no path runs it.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
 from .kernels import CudaKernel
-from .masked_ops import length_mask, masked_softmax
+from .masked_ops import NEG_INF, length_mask, masked_softmax
 
 _p, _i = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel(
     "mha_pool", "mha_pool.cu", "mha_pool_fwd",
-    [_p, _p, _p, _p, _i, _i, _i, _i, _i, _p],
+    [_p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _i, _p],
 )
-MAX_HEAD_SIZE = 512  # csrc/mha_pool.cu: 32 lanes x MAX_PL values
+MAX_HEAD_SIZE = 512  # csrc/mha_pool.cu: MAX_HEAD
+# csrc/mha_pool.cu's constants: warps a block, partial states combined
+# (R * S), G * d_h a block
+MAX_WARPS, MAX_PARTS, MAX_WIDTH = 8, 16, 1280
+# The plan's choices, from B1's times on an H100 (chip_smoke.py's sweep,
+# PERF.md): a row gets one chain of steps for every STEPS_PER_CHAIN of T, in
+# at most MAX_WARPS warps; a block holds HEADS_PER_BLOCK warps' worth of
+# heads; and a row is split over a cluster of CLUSTER_RANKS ranks, each with
+# the warps a rank would have alone, only above CLUSTER_ABOVE steps and
+# when the launch would otherwise have at most CLUSTER_BLOCKS blocks (one or
+# two long utterances), where the cluster's fixed cost (its barrier and the
+# stores into the finalising rank) pays for itself by spreading the rows
+# over twice the SMs.
+STEPS_PER_CHAIN, HEADS_PER_BLOCK = 4, 4
+CLUSTER_ABOVE, CLUSTER_RANKS, CLUSTER_BLOCKS = 192, 2, 64
+
+
+def _align16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def chain_lanes(d_h: int, vec: int) -> int:
+    """Lanes of one chain of steps (csrc/mha_pool.cu ``pick``): 8 or 16
+    (four or two chains a warp) while a lane's pieces of one step stay few,
+    else 32."""
+    pieces = d_h // vec
+    if pieces <= 16:
+        return 8
+    return 16 if pieces <= {4: 48, 8: 32, 1: 64}[vec] else 32
+
+
+def launch_plan(b: int, t: int, heads: int, d_h: int, elt: int, ht_ptr: int = 0,
+                q_ptr: int = 0) -> Dict[str, int]:
+    """The kernel's launch for ht (b, t, heads, d_h) of ``elt``-byte values
+    at ``ht_ptr`` and q at ``q_ptr``: R ranks a cluster (one cluster per
+    head group and batch row, each rank taking 1/R of a row's valid steps),
+    S warps a head (each taking every S-th group of its rank's steps, split
+    over its chains of ``chain_lanes`` lanes), G heads a block, ``vec`` the
+    values of a lane's piece (16 bytes' worth where ht and q are 16-byte
+    aligned and a head's values are whole 16-byte pieces, else 1), and the
+    dynamic shared memory a block (csrc/mha_pool.cu ``layout``: the
+    combine's buffers)."""
+    vec = 16 // elt if ht_ptr % 16 == 0 and q_ptr % 16 == 0 and (d_h * elt) % 16 == 0 else 1
+    lanes = chain_lanes(d_h, vec)
+    chains = max(1, -(-t // STEPS_PER_CHAIN))
+    warps = min(MAX_WARPS, 1 << (-(-chains * lanes // 32) - 1).bit_length())
+    g = max(1, min(heads, HEADS_PER_BLOCK // warps, MAX_WIDTH // d_h))
+    r = CLUSTER_RANKS if t > CLUSTER_ABOVE and b * -(-heads // g) <= CLUSTER_BLOCKS else 1
+    s = warps
+    share = -(-(g * d_h // vec) // r)
+    smem = 16 + _align16(r * s * share * vec * 4) + r * s * g * 8
+    return dict(ranks=r, warps_per_head=s, heads_per_block=g, vec=vec, chain_lanes=lanes,
+                smem=smem, blocks=r * -(-heads // g) * b)
 
 
 def mha_pool_plain(ht4: torch.Tensor, q_t: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
@@ -41,6 +96,42 @@ def mha_pool_plain(ht4: torch.Tensor, q_t: torch.Tensor, lengths: torch.Tensor) 
     mask = length_mask(lengths, t)[..., None]
     w = masked_softmax(scores, mask, dim=1)
     return torch.einsum("bth,bthd->bhd", w, ht4)
+
+
+def mha_pool_split_plain(ht4: torch.Tensor, q_t: torch.Tensor, lengths: torch.Tensor,
+                         ranks: int, chains: int = 1) -> torch.Tensor:
+    """:func:`mha_pool_plain` as the kernel decomposes it: batch row b's
+    len_b valid steps (lengths clamped to [0, T]) split into ``ranks``
+    consecutive runs of ceil(len_b / ranks) steps, each run split again
+    into ``chains`` interleaved chains (chain s takes the run's steps s,
+    s + chains, ...), a partial (m, l, acc) per chain (m = -1e30, l = 0,
+    acc = 0 for an empty one), and all ranks * chains partials combined by
+    exp(m_i - M), divided by max(L, 1e-30)."""
+    ht4 = ht4.to(torch.float32)
+    t = ht4.shape[1]
+    scores = torch.einsum("bthd,hd->bth", ht4, q_t)
+    length = lengths.to(torch.int64).clamp(0, t)
+    per = (length + ranks - 1) // ranks
+    steps = torch.arange(t, device=ht4.device)
+    parts = []
+    for r in range(ranks):
+        t0 = torch.minimum(length, r * per)
+        t1 = torch.minimum(length, t0 + per)
+        for c in range(chains):
+            own = steps[None, :] - t0[:, None]
+            mask = ((own >= c) & (own % chains == c) & (steps[None, :] < t1[:, None]))[..., None]
+            s = torch.where(mask, scores, NEG_INF)
+            m = s.amax(dim=1)                                           # (B, H)
+            e = torch.where(mask, torch.exp(s - m[:, None]), 0.0)
+            parts.append((m, e.sum(dim=1), torch.einsum("bth,bthd->bhd", e, ht4)))
+    big_m = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    den = torch.zeros_like(big_m)
+    acc = torch.zeros_like(parts[0][2])
+    for m, l, a in parts:
+        c = torch.exp(m - big_m)
+        den = den + l * c
+        acc = acc + a * c[..., None]
+    return acc / torch.clamp(den, min=1e-30)[..., None]
 
 
 def mha_pool_cuda(ht4: torch.Tensor, q_t: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
@@ -61,9 +152,11 @@ def mha_pool_cuda(ht4: torch.Tensor, q_t: torch.Tensor, lengths: torch.Tensor) -
     out = torch.empty((b, heads, d_h), dtype=torch.float32, device=ht4.device)
     if b == 0 or heads == 0 or d_h == 0:
         return out
+    plan = launch_plan(b, t, heads, d_h, ht4.element_size(), ht4.data_ptr(), q_t.data_ptr())
     KERNEL.launch(
         ht4.data_ptr(), q_t.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        b, t, heads, d_h, int(ht4.dtype == torch.bfloat16),
+        b, t, heads, d_h, int(ht4.dtype == torch.bfloat16), plan["heads_per_block"],
+        plan["warps_per_head"], plan["ranks"], plan["vec"],
         torch.cuda.current_stream(ht4.device).cuda_stream,
     )
     return out

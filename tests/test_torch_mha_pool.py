@@ -1,7 +1,11 @@
 """The port's MHA pooling (kernel B1's plain version) and masked ops against
 the JAX package's Pallas kernel (interpret mode) and XLA path."""
 
+import functools
+import math
+
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -62,6 +66,101 @@ def test_plain_matches_pallas_and_xla(b, t, heads, d_h, lengths, dk_is_heads):
     assert got.shape == (b, heads, d_h)
     np.testing.assert_allclose(got, ref_pallas, atol=1e-5)
     np.testing.assert_allclose(got, ref_xla, atol=1e-5)
+
+
+@functools.lru_cache(maxsize=None)
+def _split_case(b, t, heads, d_h, lengths, bf16, dk_is_heads):
+    """Inputs and both JAX references of one split-model case, shared by
+    its ranks. A bfloat16 ht goes to Pallas as bfloat16 (it upcasts on
+    load, as the split model does) and to XLA as the float32 upcast of the
+    same values."""
+    params, ht, lens = _setup(b, t, heads, d_h, lengths, seed=7 * t + d_h)
+    ht_t = torch.from_numpy(ht)
+    if bf16:
+        ht_t = ht_t.to(torch.bfloat16)
+        ht = ht_t.to(torch.float32).numpy()
+    cfg = JaxModelConfig(heads_number=heads, mha_dk_is_heads=dk_is_heads)
+    ref_xla = np.asarray(jax.jit(jax_mha_pool, static_argnums=3)(params, ht, lens, cfg)[0])
+    ref_pallas = np.asarray(mha_pool_pallas(
+        params, jnp.asarray(ht, jnp.bfloat16 if bf16 else jnp.float32), lens,
+        heads=heads, dk_is_heads=dk_is_heads, t_tile=16))
+    scale = 1.0 / math.sqrt(float(heads if dk_is_heads else d_h))
+    q_t = (torch.from_numpy(np.array(params["query"])).t() * scale).contiguous()
+    return ht_t.reshape(b, t, heads, d_h), q_t, torch.from_numpy(lens), ref_pallas, ref_xla
+
+
+@pytest.mark.parametrize("chains", [1, 4])
+@pytest.mark.parametrize("ranks", [1, 8])
+@pytest.mark.parametrize(
+    "b, t, heads, d_h, lengths, bf16, dk_is_heads",
+    [
+        # rows of length 0, 1, 3 (below R = 8), 13 (not a multiple of R) and T;
+        # the shapes of test_plain_matches_pallas_and_xla, whose compiled
+        # references the float32 cases reuse
+        (3, 50, 4, 16, (50, 0, 13), False, True),
+        (3, 50, 4, 16, (50, 0, 13), True, False),
+        (4, 37, 4, 40, (1, 3, 37, 0), False, True),
+        # T = 1
+        (2, 1, 4, 8, (1, 0), True, True),
+    ],
+)
+def test_split_plain_matches_pallas_and_xla(b, t, heads, d_h, lengths, bf16, dk_is_heads, ranks,
+                                            chains):
+    """The kernel's decomposition (each row's valid steps split over R
+    ranks, each rank's over interleaved chains, partial states combined)
+    against the Pallas kernel and the XLA path."""
+    ht4, q_t, lens, ref_pallas, ref_xla = _split_case(b, t, heads, d_h, lengths, bf16, dk_is_heads)
+    got = tp.mha_pool_split_plain(ht4, q_t, lens, ranks, chains).numpy()
+    assert got.shape == (b, heads, d_h) and got.dtype == np.float32
+    np.testing.assert_allclose(got, ref_pallas, atol=1e-5)
+    np.testing.assert_allclose(got, ref_xla, atol=1e-5)
+    assert np.all(got[np.asarray(lengths) == 0] == 0)
+
+
+@pytest.mark.parametrize("chains", [1, 8])
+def test_split_plain_equals_plain(chains):
+    """At R = 8 the split model is the plain version, to 1e-6, with lengths
+    of 0, below 0 and above T (clamped as the kernel clamps them)."""
+    rng = np.random.default_rng(21)
+    ht4 = torch.from_numpy(rng.standard_normal((7, 37, 4, 16)).astype(np.float32))
+    q_t = torch.from_numpy((rng.standard_normal((4, 16)) / 2).astype(np.float32))
+    lens = torch.tensor([37, 0, 1, 7, 20, 45, -2], dtype=torch.int32)
+    got = tp.mha_pool_split_plain(ht4, q_t, lens, 8, chains)
+    np.testing.assert_allclose(got.numpy(), tp.mha_pool_plain(ht4, q_t, lens).numpy(), atol=1e-6)
+    assert torch.all(got[1] == 0) and torch.all(got[6] == 0)
+
+
+def test_launch_plan():
+    """The kernel's launch at paper width (H=32, d_h=160): chains of 16 lanes,
+    two a warp, one chain a row for every 4 of T; at B=8, T'=7 four heads a
+    block of one warp each, from T'=63 eight warps a head; a cluster of two
+    ranks only for one or two long rows. Spans that are not whole 16-byte
+    pieces take single-value loads; every plan stays within the kernel's
+    limits."""
+    def key(plan):
+        return plan["ranks"], plan["warps_per_head"], plan["heads_per_block"], plan["blocks"]
+
+    assert key(tp.launch_plan(8, 7, 32, 160, 4)) == (1, 1, 4, 64)
+    assert key(tp.launch_plan(8, 32, 32, 160, 4)) == (1, 4, 1, 256)
+    assert key(tp.launch_plan(8, 63, 32, 160, 4)) == (1, 8, 1, 256)
+    assert key(tp.launch_plan(8, 250, 32, 160, 2)) == (1, 8, 1, 256)
+    assert key(tp.launch_plan(1, 250, 32, 160, 4)) == (2, 8, 1, 64)
+    assert key(tp.launch_plan(4, 250, 32, 160, 4)) == (1, 8, 1, 128)
+    assert key(tp.launch_plan(1, 130, 32, 160, 4)) == (1, 8, 1, 32)
+    assert tp.launch_plan(8, 63, 32, 160, 4)["vec"] == 4
+    assert tp.launch_plan(8, 63, 32, 160, 2)["vec"] == 8
+    assert tp.launch_plan(8, 63, 32, 160, 4, ht_ptr=8)["vec"] == 1
+    assert tp.launch_plan(3, 20, 3, 5, 4)["vec"] == 1
+    assert [tp.chain_lanes(d, 4) for d in (64, 160, 192, 512)] == [8, 16, 16, 32]
+    assert [tp.chain_lanes(d, 8) for d in (128, 160, 256, 512)] == [8, 16, 16, 32]
+    assert [tp.chain_lanes(d, 1) for d in (5, 40, 64, 160)] == [8, 16, 16, 32]
+    for b, t, heads, d_h, elt in ((8, 0, 32, 160, 4), (8, 1000, 32, 160, 4), (1, 4000, 32, 160, 2),
+                                  (4, 40, 4, 512, 4), (3, 201, 3, 5, 4), (2, 240, 4, 512, 4)):
+        plan = tp.launch_plan(b, t, heads, d_h, elt)
+        assert plan["ranks"] in (1, 2) and plan["ranks"] * plan["warps_per_head"] <= tp.MAX_PARTS
+        assert plan["warps_per_head"] * plan["heads_per_block"] <= tp.MAX_WARPS
+        assert plan["heads_per_block"] * d_h <= tp.MAX_WIDTH
+        assert plan["smem"] <= 48 * 1024
 
 
 def test_plain_upcasts_bfloat16_and_zero_length_rows_give_zeros():
