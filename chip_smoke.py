@@ -10,7 +10,9 @@ branch of its plan), B1 (MHA pooling, in float32 and bfloat16 at the four
 serving buckets, with a cold-L2 time at the longest and, at each, the times
 of other launches than the plan's, and at edge batches: rows of length 0
 and below 0, rows split over a 2-rank cluster with lengths below 2, a head
-of 5 values and one of 512; it also refuses inputs that require grad), B3 (the
+of 5 values and one of 512; and its gradient, ``MhaPoolFunction``'s torch-op
+backward around the kernel's forward, against autograd through the plain
+version, with one launch a forward under grad mode), B3 (the
 int8 3x3 conv on ``wgmma``, at the seven
 paper-width conv shapes and edge shapes) and the two probes P1 (the
 ``wgmma`` int8/bf16 matrix rate) and P2 (B3's full / dot-only / copy-only
@@ -23,8 +25,13 @@ float32 one, and an ``int8_static`` one calibrated on a seeded upload,
 whose embeddings are held to its own static forward with B3's plain
 version. The kernels' launch
 counts, set to 0 just before each server is driven and read just after,
-show that each serving path went through its kernels. Any failed phase
-exits non-zero. The last line is
+show that each serving path went through its kernels. Last, the ``[train]``
+phase trains the paper's model with its recipe (5994 speakers, Adam at
+1e-4, 2 microbatches of 64 windows of 3.5 s as int16 PCM, so B2 runs in the
+step and B1 in every forward): step 1's gradients on the kernel path are
+held to the same step with B1's plain version, one small step to the CPU,
+and three steps, driven with every launch count at 0, are timed beside the
+peak memory. Any failed phase exits non-zero. The last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": 1}}
 
@@ -50,6 +57,29 @@ DEVICE = "cuda"
 
 TOL_LOGMEL = 2e-4        # JAX holds Pallas against XLA to this (tests/test_pallas_logmel.py)
 TOL_POOL = 1e-5
+# B1's bfloat16 d_ht against autograd through the plain version: both compute
+# in float32 and round to bfloat16 once, so where their float32 values differ
+# in the last bits they may round to neighbouring bfloat16 values, one step
+# (at most 2^-7 of the value) apart
+TOL_POOL_GRAD_BF16 = 2.0 ** -7
+# train step: each gradient within this fraction of the largest value of its
+# scale (scale_key); the loss card vs CPU within this
+TOL_TRAIN_GRAD = 1e-4
+TOL_TRAIN_LOSS = 1e-5
+# Card vs CPU: at random weights the encoder's gradients, and fc2.bias's
+# (scale_key), jump where float32 rounding moves a ReLU or a max-pool
+# decision across its tie, and the card's convolutions round differently
+# from the CPU's in every layer. So these are held by their L2 distance,
+# within TOL_TRAIN_L2 of their scale's norm, and the rest by TOL_TRAIN_GRAD.
+# The phase shows the effect on the CPU alone: its own step again with its
+# features moved by TRAIN_NUDGE of their value
+TOL_TRAIN_L2 = 2e-2
+TRAIN_NUDGE = 1e-7
+TRAIN_STEPS = 3
+# B x seconds of the card-vs-CPU step: at B=2 train-mode BatchNorm is near
+# saturation (each feature normalizes to about +-1), which leaves the
+# gradients before it a near-cancellation; 8 items keep them well-conditioned
+TRAIN_SMALL = (8, 2.0)
 TOL_EMBED = 1e-4         # golden-embedding tolerance (tests/test_example_artifact.py)
 TOL_CONV_FP = 1e-6       # B3 float outputs, relative (int8 outputs must be equal)
 COSINE_GUARD = 0.98      # int8_static vs fp embeddings (models/quantized.py's guard)
@@ -435,37 +465,316 @@ def phase_pool():
             print(f"[B1 mha_pool] {what} lengths={list(lengths)}: max|d|={err:.3g} "
                   f"(tol {TOL_POOL}), rows of length <= 0 exactly zero; "
                   f"{pool_plan(b, tp, heads, d_h, dtype)}")
-    check_pool_refuses_grad()
     return dict(max_abs_err=worst, **main)
 
 
-def check_pool_refuses_grad():
-    """B1 has no backward yet: ``mha_pool`` on CUDA inputs that require grad
-    raises under grad mode, before any launch, and launches under no_grad."""
+def pool_grads(fn, ht, query, lens, g):
+    """d_ht and d_query of sum(fn(ht, query, lens) * g), on fresh leaves."""
+    import torch
+
+    ht = ht.detach().requires_grad_(True)
+    query = query.detach().requires_grad_(True)
+    (fn(ht, query, lens) * g).sum().backward()
+    return ht.grad, query.grad
+
+
+def phase_pool_backward():
+    """B1's gradient: d_ht and d_query through ``MhaPoolFunction`` (the
+    kernel's forward, the torch-op backward) against autograd through
+    ``mha_pool_plain`` on the card, at the serving buckets' T' with a row of
+    length 0 and one above T, in float32 and bfloat16; one B1 launch per
+    forward under grad mode. Times the backward beside its byte bound and
+    autograd through the plain version. Returns the main bucket's row."""
     import torch
 
     from doubleattentionspeakerverification_tpu_torch.ops import mha_pool
+    from doubleattentionspeakerverification_tpu_torch.tools.timing import (
+        FP32_OPS_PER_S, bound_ms, cuda_ms,
+    )
 
-    heads, d_h = 4, 8
-    for grad_of in ("ht", "query"):
-        ht = torch.ones((2, 5, heads * d_h), device=DEVICE, requires_grad=grad_of == "ht")
-        query = torch.ones((d_h, heads), device=DEVICE, requires_grad=grad_of == "query")
-        before = mha_pool.KERNEL.launches
-        try:
-            mha_pool.mha_pool(ht, query, None, heads)
-            raised = ""
-        except RuntimeError as e:
-            raised = str(e)
-        check("backward" in raised and mha_pool.KERNEL.launches == before,
-              f"B1 on CUDA inputs whose {grad_of} requires grad: raised {raised!r}, "
-              f"launches {before} -> {mha_pool.KERNEL.launches}")
-        with torch.no_grad():
-            out = mha_pool.mha_pool(ht, query, None, heads)
+    rng = np.random.default_rng(9)
+    scale = 1.0 / math.sqrt(POOL_H)
+
+    def plain(ht, query, lens):
+        b, t, _ = ht.shape
+        return mha_pool.mha_pool_plain(ht.reshape(b, t, POOL_H, POOL_DH),
+                                       (query.t() * scale).contiguous(), lens)
+
+    def port(ht, query, lens):
+        return mha_pool.mha_pool(ht, query, lens, POOL_H)
+
+    worst, main = 0.0, None
+    for tp in POOL_T:
+        lens_np = np.r_[0, tp + 5, 1, tp, rng.integers(1, tp + 1, POOL_B - 4)].astype(np.int32)
+        lens = torch.from_numpy(lens_np).to(DEVICE)
+        ht = torch.from_numpy(rng.standard_normal((POOL_B, tp, POOL_H * POOL_DH))
+                              .astype(np.float32)).to(DEVICE)
+        query = torch.from_numpy(rng.standard_normal((POOL_DH, POOL_H)).astype(np.float32)).to(DEVICE)
+        g = torch.from_numpy(rng.standard_normal((POOL_B, POOL_H, POOL_DH)).astype(np.float32)).to(DEVICE)
+        for dtype, tol in ((torch.float32, TOL_POOL), (torch.bfloat16, TOL_POOL_GRAD_BF16)):
+            x = ht.to(dtype)
+            before = mha_pool.KERNEL.launches
+            d_ht, d_q = pool_grads(port, x, query, lens, g)
+            launched = mha_pool.KERNEL.launches - before
+            ref_ht, ref_q = pool_grads(plain, x, query, lens, g)
+            torch.cuda.synchronize()
+            check(launched == 1, f"B1 under grad mode at T'={tp} {dtype}: {launched} launches")
+            check(d_ht.dtype == dtype and d_q.dtype == torch.float32,
+                  f"B1 backward gradient types {d_ht.dtype} {d_q.dtype}")
+            err_ht = float((d_ht.float() - ref_ht.float()).abs().max())
+            err_q = float((d_q - ref_q).abs().max())
+            if dtype == torch.float32:
+                ok = err_ht <= tol and err_q <= tol
+            else:   # one bfloat16 rounding of each d_ht value, d_query in float32
+                ok = (bool(((d_ht.float() - ref_ht.float()).abs()
+                            <= tol * ref_ht.float().abs() + TOL_POOL).all()) and err_q <= TOL_POOL)
+            check(math.isfinite(err_ht) and math.isfinite(err_q) and ok,
+                  f"B1 backward disagrees with autograd through the plain version at T'={tp} "
+                  f"{dtype}: d_ht {err_ht:.3g}, d_query {err_q:.3g}")
+            check(not bool(d_ht[torch.from_numpy(lens_np <= 0).to(DEVICE)].any()),
+                  f"B1 backward: rows of length 0 got a gradient at T'={tp} {dtype}")
+            worst = max(worst, err_q, err_ht if dtype == torch.float32 else 0.0)
+            print(f"[B1 backward] B={POOL_B} T'={tp} {str(dtype)[6:]} lengths={lens_np.tolist()}: "
+                  f"one launch a forward under grad mode; d_ht max|d|={err_ht:.3g}, d_query "
+                  f"max|d|={err_q:.3g} against autograd through the plain version (tol "
+                  f"{tol if dtype == torch.float32 else f'{tol} relative + {TOL_POOL}'}); "
+                  f"rows of length 0 get zero gradient")
+        # the backward alone on the Function's saved inputs; forward and
+        # backward through the Function (the kernel's forward) and through
+        # autograd of the plain version, each captured whole in a CUDA graph
+        ht4 = ht.reshape(POOL_B, tp, POOL_H, POOL_DH).requires_grad_(True)
+        q_t = (query.t() * scale).contiguous().requires_grad_(True)
+        ms = cuda_ms(lambda: mha_pool.mha_pool_backward(ht4.detach(), q_t.detach(), lens, g), 20)
+        fwd_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+            mha_pool.MhaPoolFunction.apply(ht4, q_t, lens), (ht4, q_t), g), 20)
+        library_ms = cuda_ms(lambda: torch.autograd.grad(
+            mha_pool.mha_pool_plain(ht4, q_t, lens), (ht4, q_t), g), 20)
+        valid = int(np.minimum(lens_np, tp).sum())
+        elems = POOL_B * tp * POOL_H * POOL_DH
+        b_ms, b_by = bound_ms(
+            (valid * POOL_H * POOL_DH + elems + 2 * q_t.numel() + 2 * g.numel() + POOL_B) * 4,
+            10.0 * valid * POOL_H * POOL_DH, FP32_OPS_PER_S)
+        print(f"[B1 backward] T'={tp}: backward_ms={ms:.5f} (torch ops) bound_ms={b_ms:.5f} "
+              f"({b_by}: valid ht read once, d_ht written once); forward + backward: "
+              f"{fwd_bwd_ms:.5f} through the Function, library_ms={library_ms:.5f} through "
+              f"autograd of the plain version (CUDA-graph replay)")
+        if tp == POOL_MAIN:
+            main = dict(ms=ms, fwd_bwd_ms=fwd_bwd_ms, library_ms=library_ms, bound_ms=b_ms,
+                        bound_by=b_by)
+    return dict(max_abs_err=worst, **main)
+
+
+def scale_key(name):
+    """The gradient whose size sets ``name``'s tolerance: its own, but
+    ``fc2.weight``'s for ``fc2.bias``. ``b2`` normalizes by the batch
+    statistics in train mode, so it removes any constant added to a feature
+    before it: the bias's gradient is zero wherever the ReLU between passes
+    every item of the batch, and is rounding in a sum that cancels there."""
+    return "fc2.weight" if name == "fc2.bias" else name
+
+
+def compare_grads(got, ref, what, sensitive=()):
+    """Every gradient within TOL_TRAIN_GRAD of the largest value of its
+    scale (``scale_key``); a gradient in ``sensitive`` may instead be within
+    TOL_TRAIN_L2 of its scale's L2 norm. Prints the worst tensors; returns
+    the worst ratio of the others and the worst L2 distance of these."""
+    ratios = {k: float((got[k] - ref[k]).abs().max()) / float(ref[scale_key(k)].abs().max())
+              for k in ref}
+    l2 = {k: float((got[k] - ref[k]).norm()) / max(float(ref[scale_key(k)].norm()), 1e-30)
+          for k in ref}
+    worst = sorted(ratios, key=lambda k: -ratios[k])
+    print(f"[train] {what}: max|d| / max|g| (L2 distance / |g|) per tensor, worst five: "
+          + ", ".join(f"{k} {ratios[k]:.3g} ({l2[k]:.3g})" for k in worst[:5]))
+    bad = [k for k in worst
+           if not (ratios[k] <= TOL_TRAIN_GRAD or (k in sensitive and l2[k] <= TOL_TRAIN_L2))]
+    check(not bad, f"[train] {what}: gradients beyond {TOL_TRAIN_GRAD} of their largest (the "
+          f"encoder's and fc2.bias's, beyond {TOL_TRAIN_L2} of their norm): "
+          + ", ".join(f"{k} {ratios[k]:.3g} ({l2[k]:.3g})" for k in bad))
+    return (max([ratios[k] for k in ref if k not in sensitive], default=0.0),
+            max([l2[k] for k in sensitive], default=0.0))
+
+
+def train_batch(rng, cfg, g, b, seconds, ragged):
+    """Seeded speech windows as int16 PCM (G, B, N), their lengths (the
+    microbatches in ``ragged`` cut to random lengths of 1 s and more) and
+    random speaker labels."""
+    from doubleattentionspeakerverification_tpu_torch.dsp.features import num_samples_for_frames
+
+    n = num_samples_for_frames(int(round(seconds * 100)), cfg.features)
+    waves = np.stack([np.stack([seeded_speech(rng, n / 16000) for _ in range(b)])
+                      for _ in range(g)])
+    pcm = np.clip(np.round(waves * 32767), -32768, 32767).astype(np.int16)
+    lengths = np.full((g, b), n, np.int32)
+    for i in ragged:
+        lengths[i] = rng.integers(num_samples_for_frames(100, cfg.features), n + 1, b)
+        lengths[i, 0] = n
+    labels = rng.integers(0, cfg.model.num_spkrs, (g, b)).astype(np.int32)
+    return {"waves": pcm, "lengths": lengths, "labels": labels}
+
+
+def train_run(cfg, state0, batch, keep, device, plain_pool=False):
+    """One step of a model holding ``state0`` on ``device`` (the kernel path,
+    or with B1's plain version in the kernel's place); returns the metrics,
+    the gradients and the launches of B1 in the step."""
+    import torch
+
+    from doubleattentionspeakerverification_tpu_torch.models.classifier import SpeakerClassifier
+    from doubleattentionspeakerverification_tpu_torch.ops import mha_pool
+    from doubleattentionspeakerverification_tpu_torch.training.optimizers import make_optimizer
+    from doubleattentionspeakerverification_tpu_torch.training.step import make_train_step
+
+    model = SpeakerClassifier(cfg.model)
+    model.load_state_dict(state0)
+    step = make_train_step(cfg, model, make_optimizer(cfg.train, model.parameters()), device)
+    before, kernel = mha_pool.KERNEL.launches, mha_pool.mha_pool_cuda
+    if plain_pool:
+        mha_pool.mha_pool_cuda = mha_pool.mha_pool_plain
+    try:
+        out = step(batch, keep=keep)
+    finally:
+        mha_pool.mha_pool_cuda = kernel
+    grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters() if p.grad is not None}
+    return ({k: float(v) for k, v in out.items()}, grads, mha_pool.KERNEL.launches - before)
+
+
+def train_conv_ops(cfg, b, frames):
+    """Operations of the encoder's convolutions in one microbatch of b
+    windows of ``frames`` frames, forward and backward (weight gradients of
+    all, input gradients of all but the first, whose input needs none)."""
+    from doubleattentionspeakerverification_tpu_torch.models.vgg import vgg_channel_plan
+
+    t, f, ops = frames, cfg.model.feature_size, 0.0
+    for i, (cin, cout) in enumerate(vgg_channel_plan(cfg.model.front_end, cfg.model.kernel_size)):
+        for j, c_in in enumerate((cin, cout)):
+            fwd = 2.0 * 9 * c_in * cout * t * f * b
+            ops += fwd * (2 if i == 0 and j == 0 else 3)
+        t, f = -(-t // 2), -(-f // 2)
+    return ops
+
+
+def phase_train():
+    """The train step at the paper's width and recipe, wav mode: its
+    gradients on the kernel path against the plain pooling's on the card,
+    one small step against the CPU, then three steps driven with every
+    kernel count at 0, timed. Returns B1's and B2's launches in those
+    steps."""
+    import torch
+
+    from doubleattentionspeakerverification_tpu_torch import ops
+    from doubleattentionspeakerverification_tpu_torch.config import ExperimentConfig
+    from doubleattentionspeakerverification_tpu_torch.models.classifier import SpeakerClassifier
+    from doubleattentionspeakerverification_tpu_torch.models.init import init_parameters
+    from doubleattentionspeakerverification_tpu_torch.models.poolings import draw_head_keep
+    from doubleattentionspeakerverification_tpu_torch.tools.timing import FP32_OPS_PER_S
+    from doubleattentionspeakerverification_tpu_torch.training.optimizers import make_optimizer
+    from doubleattentionspeakerverification_tpu_torch.training.step import (
+        make_train_step, prepare_inputs,
+    )
+
+    cfg = ExperimentConfig()
+    m, t = cfg.model, cfg.train
+    check((m.front_end, m.kernel_size, m.heads_number, m.pooling_method, m.embedding_size,
+           m.num_spkrs, m.mask_prob, t.optimizer, t.learning_rate, t.weight_decay, t.batch_size,
+           t.gradient_accumulation, t.window_size)
+          == ("VGG4L", 1024, 32, "DoubleMHA", 400, 5994, 0.3, "Adam", 1e-4, 1e-3, 64, 2, 3.5),
+          f"not the paper's training configuration: {cfg}")
+    state0 = init_parameters(SpeakerClassifier(m), torch.Generator().manual_seed(0)).state_dict()
+    rng = np.random.default_rng(10)
+    g, b = t.gradient_accumulation, t.batch_size
+    batch = train_batch(rng, cfg, g, b, t.window_size, ragged=(1,))
+    gen = torch.Generator().manual_seed(1)
+    keep = [draw_head_keep(b, m.heads_number, m.mask_prob, gen) for _ in range(g)]
+
+    # step 1 on the kernel path against the same step with B1's plain version,
+    # cuDNN deterministic, the same weights and keep masks
+    torch.backends.cudnn.deterministic = True
+    try:
+        out_k, grads_k, launched_k = train_run(cfg, state0, batch, keep, DEVICE)
+        out_p, grads_p, launched_p = train_run(cfg, state0, batch, keep, DEVICE, plain_pool=True)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    check(launched_k == g and launched_p == 0,
+          f"[train] B1 launches: {launched_k} on the kernel path, {launched_p} with its plain version")
+    check(abs(out_k["loss"] - out_p["loss"]) <= TOL_POOL * max(1.0, abs(out_p["loss"])),
+          f"[train] loss on the kernel path {out_k['loss']} vs the plain pooling {out_p['loss']}")
+    with torch.device("meta"):
+        names = {n for n, _ in SpeakerClassifier(m).named_parameters()}
+    check(set(grads_k) == names, "[train] a parameter got no gradient")
+    for n, v in grads_k.items():
+        check(bool(torch.isfinite(v).all()) and bool(v.abs().max() > 0),
+              f"[train] gradient of {n} not finite or all zero")
+    kp, _ = compare_grads(grads_k, grads_p, "step 1, kernel path vs B1's plain version on the card")
+    print(f"[train] step 1 (G={g} x B={b} x {t.window_size} s, the second microbatch ragged): "
+          f"loss {out_k['loss']:.6f} (plain pooling {out_p['loss']:.6f}), accuracy "
+          f"{out_k['accuracy']:.4f}; {launched_k} B1 launches; every parameter has a finite, "
+          f"nonzero gradient; gradients within {kp:.3g} of their scale of the plain pooling's")
+    del grads_k, grads_p
+
+    # one small step, card against CPU, on the same CPU-made features
+    small = train_batch(np.random.default_rng(11), cfg, 1, TRAIN_SMALL[0], TRAIN_SMALL[1], ragged=())
+    feats, lengths = prepare_inputs(small, cfg, torch.device("cpu"))
+    small = {"inputs": feats.numpy(), "lengths": lengths.numpy(), "labels": small["labels"]}
+    keep1 = [draw_head_keep(TRAIN_SMALL[0], m.heads_number, m.mask_prob, gen)]
+    out_c, grads_c, _ = train_run(cfg, state0, small, keep1, DEVICE)
+    out_h, grads_h, _ = train_run(cfg, state0, small, keep1, "cpu")
+    nudge = np.random.default_rng(12).standard_normal(small["inputs"].shape).astype(np.float32)
+    nudged = dict(small, inputs=(small["inputs"] * (1 + TRAIN_NUDGE * nudge)).astype(np.float32))
+    _, grads_n, _ = train_run(cfg, state0, nudged, keep1, "cpu")
+    moved = {k: float((grads_n[k] - grads_h[k]).abs().max())
+             / float(grads_h[scale_key(k)].abs().max()) for k in grads_h}
+    print(f"[train] the CPU's own step with its features moved by {TRAIN_NUDGE:g} of their value: "
+          f"gradients move by up to {max(moved.values()):.3g} of their largest "
+          f"({max(moved, key=moved.get)}); beyond {TOL_TRAIN_GRAD}: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in sorted(moved.items()) if v > TOL_TRAIN_GRAD))
+    sensitive = {k for k in grads_h if k.startswith("vgg.")} | {"fc2.bias"}
+    del grads_n
+    err = abs(out_c["loss"] - out_h["loss"])
+    check(err <= TOL_TRAIN_LOSS, f"[train] small step loss: card {out_c['loss']} vs CPU {out_h['loss']}")
+    ch, ch_l2 = compare_grads(grads_c, grads_h, f"one step of B={TRAIN_SMALL[0]} x "
+                              f"{TRAIN_SMALL[1]} s, card vs CPU", sensitive)
+    print(f"[train] B={TRAIN_SMALL[0]} x {TRAIN_SMALL[1]} s, G=1: loss card {out_c['loss']:.6f}, "
+          f"CPU {out_h['loss']:.6f}, |d|={err:.3g} (tol {TOL_TRAIN_LOSS}); gradients within "
+          f"{ch:.3g} of their largest (tol {TOL_TRAIN_GRAD}), the encoder's and fc2.bias's "
+          f"within {ch_l2:.3g} of their norm (tol {TOL_TRAIN_L2})")
+    del grads_c, grads_h
+
+    conv_ops = g * train_conv_ops(cfg, b, int(round(t.window_size * 100)))
+    print(f"[train] the step's convolutions: {conv_ops / 1e12:.2f} TFLOP forward and backward, "
+          f"{conv_ops / FP32_OPS_PER_S * 1e3:.1f} ms at the float32 peak")
+
+    # the main path: TRAIN_STEPS steps, kernel counts read from 0
+    model = SpeakerClassifier(m)
+    model.load_state_dict(state0)
+    step = make_train_step(cfg, model, make_optimizer(t, model.parameters()), DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in ops.KERNELS:
+        k.launches = 0
+    times, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step(batch)
+        end.record()
         torch.cuda.synchronize()
-        check(mha_pool.KERNEL.launches == before + 1 and out.shape == (2, heads, d_h),
-              f"B1 under no_grad with {grad_of} requiring grad did not launch")
-    print("[B1 mha_pool] CUDA inputs that require grad (ht, then query) raise under grad mode "
-          "with no launch, and launch under no_grad")
+        times.append(start.elapsed_time(end))
+        losses.append(float(out["loss"]))
+        for n, p in model.named_parameters():
+            check(p.grad is not None and bool(torch.isfinite(p.grad).all()),
+                  f"[train] step {step.step}: gradient of {n} missing or not finite")
+    launches = {k.name: k.launches for k in ops.KERNELS}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    check(all(math.isfinite(x) for x in losses), f"[train] losses {losses}")
+    for name in ("mha_pool", "logmel"):
+        check(launches[name] > 0, f"kernel {name} was never launched on the [train] path")
+    print(f"[train] kernel launches in {TRAIN_STEPS} steps: {json.dumps(launches)}")
+    print(f"[train] {TRAIN_STEPS} steps of G={g} x B={b} x {t.window_size} s windows (wav mode, "
+          f"int16 PCM; Adam lr {t.learning_rate}, weight decay {t.weight_decay}): losses "
+          + ", ".join(f"{x:.6f}" for x in losses) + f"; step times "
+          + ", ".join(f"{x:.1f}" for x in times) + f" ms (CUDA events), median "
+          f"{float(np.median(times)):.1f} ms; peak torch.cuda.max_memory_allocated = "
+          f"{peak_gib:.2f} GiB")
+    return launches
 
 
 def phase_example_checkpoint():
@@ -867,6 +1176,7 @@ def main() -> int:
         phase_build()
         logmel_stats = phase_logmel()
         pool_stats = phase_pool()
+        pool_bwd_stats = phase_pool_backward()
         conv_stats = phase_conv_int8()
         rate_stats = phase_rate_probe()
         micro_stats = phase_conv_probe()
@@ -887,6 +1197,9 @@ def main() -> int:
               f"to the float32 server's < {COSINE_GUARD}")
         print(f"[forward] B=8 x 10 s: float32 {fp_ms:.3f} ms, int8_static {q_ms:.3f} ms "
               f"({fp_ms / q_ms:.2f}x) device time on {smi}")
+        train_launches = phase_train()
+        print(f"[B1 backward] T'={POOL_MAIN}: " + json.dumps(dict(
+            pool_bwd_stats, launches_per_train_step=train_launches["mha_pool"] // TRAIN_STEPS)))
     except PhaseError as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

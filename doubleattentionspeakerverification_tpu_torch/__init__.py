@@ -7,6 +7,6 @@ The Pallas TPU kernels on its path are hand-written CUDA kernels under
 ``csrc/`` (``ops/``), each beside its plain PyTorch version.
 """
 
-from .config import ExperimentConfig, FeatureConfig, ModelConfig
+from .config import ExperimentConfig, FeatureConfig, ModelConfig, TrainConfig
 
-__all__ = ["ExperimentConfig", "FeatureConfig", "ModelConfig"]
+__all__ = ["ExperimentConfig", "FeatureConfig", "ModelConfig", "TrainConfig"]

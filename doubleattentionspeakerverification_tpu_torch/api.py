@@ -2,9 +2,10 @@
 
     from doubleattentionspeakerverification_tpu_torch.api import SpeakerEmbeddingModel
 
-    model = SpeakerEmbeddingModel.from_checkpoint("run1/..._best_1234.npz")
+    model = SpeakerEmbeddingModel.from_checkpoint("run1/..._best_1234.npz")  # or a .chkpt
     emb = model.embed_wav("a.wav")
     sim = model.score(emb, model.embed_wav("b.wav"))   # cosine in [-1, 1]
+    same = model.verify("a.wav", "b.wav", threshold=0.5)
 
 Runs on the card unless ``device="cpu"`` is given; asking for CUDA where
 there is none raises. ``quantize="int8"`` or ``"int8_static"`` serves the
@@ -31,6 +32,7 @@ from .models.init import init_parameters
 from .models.quantized import make_int8_embed_fn
 from .utils.checkpoint import load_checkpoint
 from .utils.device import resolve_device
+from .utils.torch_import import load_torch_checkpoint
 from .utils.weights import params_from_jax
 
 ArrayLike = Union[np.ndarray, torch.Tensor]
@@ -43,7 +45,16 @@ def _empty_model(cfg: ExperimentConfig) -> SpeakerClassifier:
     return model.to_empty(device="cpu")
 
 
+def _model_from_state(state, cfg: ExperimentConfig) -> SpeakerClassifier:
+    """The module holding ``state``, a state dict keyed by the port's names
+    that may carry more (``utils/weights.py``, ``utils/torch_import.py``)."""
+    model = _empty_model(cfg)
+    model.load_state_dict({k: state[k] for k in model.state_dict()})
+    return model
+
+
 QUANTIZE_MODES = ("none", "int8", "int8_static")
+REFERENCE_SUFFIXES = (".chkpt", ".pt", ".pth")
 
 
 class SpeakerEmbeddingModel:
@@ -100,7 +111,12 @@ class SpeakerEmbeddingModel:
     def from_checkpoint(cls, path: str, normalization: str = "cmn", device="cuda",
                         quantize: str = "none",
                         quantize_scales_path: Optional[str] = None) -> "SpeakerEmbeddingModel":
-        """Load a JAX package ``.npz`` checkpoint; its embedded config wins."""
+        """Load a JAX package ``.npz`` checkpoint or a reference torch
+        ``.chkpt`` (also ``.pt``/``.pth``); the config it carries wins."""
+        if path.endswith(REFERENCE_SUFFIXES):
+            state, cfg, _epoch, _step = load_torch_checkpoint(path)
+            return cls(_model_from_state(state, cfg), cfg, normalization, device, quantize,
+                       quantize_scales_path)
         flat, meta = load_checkpoint(path)
         return cls.from_jax(flat, ExperimentConfig.from_dict(meta["config"]),
                             normalization, device, quantize, quantize_scales_path)
@@ -111,10 +127,8 @@ class SpeakerEmbeddingModel:
                  quantize_scales_path: Optional[str] = None) -> "SpeakerEmbeddingModel":
         """From the JAX package's parameters as flat numpy leaves keyed
         ``params/...`` and ``model_state/...`` (``utils/weights.py``)."""
-        model = _empty_model(cfg)
-        state = params_from_jax(flat)
-        model.load_state_dict({k: state[k] for k in model.state_dict()})
-        return cls(model, cfg, normalization, device, quantize, quantize_scales_path)
+        return cls(_model_from_state(params_from_jax(flat), cfg), cfg, normalization, device,
+                   quantize, quantize_scales_path)
 
     @classmethod
     def from_random_init(cls, cfg: ExperimentConfig, seed: int = 0, device="cuda",
@@ -169,3 +183,9 @@ class SpeakerEmbeddingModel:
     # ------------------------------------------------------------- scoring
     def score(self, emb1: np.ndarray, emb2: np.ndarray) -> float:
         return float(cosine_scores(np.asarray(emb1)[None], np.asarray(emb2)[None])[0])
+
+    def score_wavs(self, path1: str, path2: str) -> float:
+        return self.score(self.embed_wav(path1), self.embed_wav(path2))
+
+    def verify(self, path1: str, path2: str, threshold: float = 0.5) -> bool:
+        return self.score_wavs(path1, path2) >= threshold

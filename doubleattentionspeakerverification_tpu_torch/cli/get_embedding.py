@@ -1,6 +1,7 @@
 """Embedding-inference CLI (reference ``scripts/getEmbeddingExample.py``).
 
-Loads a JAX package ``.npz`` checkpoint, extracts normalized log-mel
+Loads a checkpoint, the JAX package's ``.npz`` or a reference torch
+``.chkpt`` (read by ``utils/torch_import.py``), extracts normalized log-mel
 features from a wav and prints the scoring embedding, on the GPU unless
 ``--device cpu``:
 
@@ -8,8 +9,7 @@ features from a wav and prints the scoring embedding, on the GPU unless
       --audioPath a.wav --modelCheckpoint models/run1/..._best_1234.npz
 
 The checkpoint's embedded config wins, and normalization is CMN unless
-overridden, as in the reference. Reference torch ``.chkpt`` files are not
-read by the port yet and are refused with a message saying so.
+overridden, as in the reference.
 """
 
 from __future__ import annotations
@@ -20,14 +20,12 @@ import numpy as np
 
 from ..api import QUANTIZE_MODES, SpeakerEmbeddingModel
 
-_REFERENCE_SUFFIXES = (".chkpt", ".pt", ".pth")
-
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Print the speaker embedding of one audio file.")
     parser.add_argument("--audioPath", type=str, required=True)
     parser.add_argument("--modelCheckpoint", type=str, required=True,
-                        help="a JAX package .npz checkpoint")
+                        help="a JAX package .npz or a reference torch .chkpt checkpoint")
     parser.add_argument("--normalization", type=str, default="cmn", choices=["cmn", "cmvn"])
     parser.add_argument("--quantize", type=str, default="none", choices=list(QUANTIZE_MODES),
                         help="int8 conv encoder (the serving schemes; embeddings "
@@ -35,9 +33,6 @@ def main(argv=None) -> int:
     parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
     params = parser.parse_args(argv)
 
-    if params.modelCheckpoint.endswith(_REFERENCE_SUFFIXES):
-        parser.error(f"{params.modelCheckpoint}: reference torch checkpoints are not read by "
-                     "the port yet; give a JAX package .npz checkpoint")
     model = SpeakerEmbeddingModel.from_checkpoint(
         params.modelCheckpoint, params.normalization, device=params.device,
         quantize=params.quantize)

@@ -27,6 +27,17 @@ def num_frames(num_samples: int, cfg: FeatureConfig) -> int:
     return max(0, 1 + (num_samples - cfg.n_fft) // cfg.hop_length)
 
 
+def num_samples_for_frames(frames: int, cfg: FeatureConfig) -> int:
+    """Samples that give exactly ``frames`` STFT frames."""
+    return cfg.n_fft + (frames - 1) * cfg.hop_length
+
+
+def frames_for_samples(lengths: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
+    """Valid frame count of each (possibly padded) waveform length."""
+    return torch.clamp(1 + torch.div(lengths - cfg.n_fft, cfg.hop_length, rounding_mode="floor"),
+                       min=0)
+
+
 @functools.lru_cache(maxsize=8)
 def dft_mel_constants(cfg: FeatureConfig) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """(cos_basis, sin_basis, mel_T) with the analysis window folded into the

@@ -1,22 +1,23 @@
-"""The embedding trunk of the speaker classifier (reference ``model.py:8-71``).
+"""The speaker classifier (reference ``model.py:8-71``).
 
 VGG -> pooling -> fc1+ReLU -> fc2+ReLU -> BatchNorm ``b2`` -> the scoring
 embedding the reference taps in ``getEmbedding`` (``model.py:52-59``; JAX
-``models/classifier.py:116-147``). The reference's b1/b3 BatchNorms are
-never applied and are not built. The training head (preLayer, AM-Softmax)
-comes with the training slice.
+``models/classifier.py:116-147``) -> preLayer -> AM-Softmax, the training
+head (``model.py:61-71``; JAX ``:190-222``). The reference's b1/b3
+BatchNorms are never applied and are not built.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..config import ModelConfig
-from .poolings import make_pooling, pooled_dim
+from .amsoftmax import AMSoftmax
+from .poolings import DoubleMHAPooling, make_pooling, pooled_dim
 from .vgg import VGG, vgg_output_dim
 
 
@@ -24,24 +25,56 @@ def encoder_dim(cfg: ModelConfig) -> int:
     return vgg_output_dim(cfg.front_end, cfg.kernel_size, cfg.feature_size)
 
 
+class BatchNorm(nn.BatchNorm1d):
+    """``BatchNorm1d`` whose ``train()`` forward is the JAX package's
+    ``_batch_norm``: normalize by the biased batch variance, move the running
+    mean and variance by ``momentum`` toward the batch mean and the unbiased
+    variance (var * n / max(1, n - 1), so a batch of one item gives variance 0
+    and the output is the bias, where torch's own raises), and count the
+    batch in ``num_batches_tracked``. ``eval()`` is torch's."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        mean = x.mean(dim=0)
+        var = ((x - mean) ** 2).mean(dim=0)
+        n = x.shape[0]
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1 - m).add_(m * mean)
+            self.running_var.mul_(1 - m).add_(m * (var * (n / max(1, n - 1))))
+            self.num_batches_tracked.add_(1)
+        return (x - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
+
+
 class SpeakerClassifier(nn.Module):
-    """Eval-mode embedding model; ``b2`` has torch ``BatchNorm1d`` semantics
-    and, in ``eval()``, normalizes with its running statistics."""
+    """The embedding trunk and the training head. ``forward`` is the
+    scoring embedding (``eval()`` for serving: ``b2`` normalizes with its
+    running statistics); ``classify`` is the training forward."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
+        self.cfg = cfg
         enc = encoder_dim(cfg)
         emb = cfg.embedding_size
         self.vgg = VGG(cfg)
         self.pooling = make_pooling(cfg, enc)
         self.fc1 = nn.Linear(pooled_dim(cfg.pooling_method, enc, cfg.heads_number), emb)
         self.fc2 = nn.Linear(emb, emb)
-        self.b2 = nn.BatchNorm1d(emb, eps=cfg.bn_eps, momentum=cfg.bn_momentum)
+        self.b2 = BatchNorm(emb, eps=cfg.bn_eps, momentum=cfg.bn_momentum)
+        self.pre_layer = nn.Linear(emb, emb)
+        self.amsoftmax = AMSoftmax(emb, cfg.num_spkrs)
 
-    def tail(self, enc: torch.Tensor, enc_len: Optional[torch.Tensor]) -> torch.Tensor:
+    def tail(self, enc: torch.Tensor, enc_len: Optional[torch.Tensor],
+             keep: Optional[torch.Tensor] = None,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Everything after the encoder (JAX ``trunk_tail``): pooling -> fc1
-        -> fc2 -> ``b2``. The int8 encoders (``models/quantized.py``) share it."""
-        pooled = self.pooling(enc, enc_len)
+        -> fc2 -> ``b2``. The int8 encoders (``models/quantized.py``) share it.
+        ``keep`` / ``generator`` feed DoubleMHA's head dropout in ``train()``."""
+        if isinstance(self.pooling, DoubleMHAPooling):
+            pooled = self.pooling(enc, enc_len, keep, generator)
+        else:
+            pooled = self.pooling(enc, enc_len)
         e1 = F.relu(self.fc1(pooled))
         e2 = F.relu(self.fc2(e1))
         return self.b2(e2)
@@ -49,3 +82,18 @@ class SpeakerClassifier(nn.Module):
     def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(B, T, F) normalized log-mel (+ valid lengths) -> (B, emb)."""
         return self.tail(*self.vgg(x, lengths))
+
+    def classifier_features(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None,
+                            keep: Optional[torch.Tensor] = None,
+                            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Trunk + preLayer: the (B, emb) vector the AM-Softmax head takes."""
+        return self.pre_layer(self.tail(*self.vgg(x, lengths), keep, generator))
+
+    def classify(self, x: torch.Tensor, labels: torch.Tensor, step,
+                 lengths: Optional[torch.Tensor] = None, keep: Optional[torch.Tensor] = None,
+                 generator: Optional[torch.Generator] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The full forward (JAX ``speaker_classifier_apply``): (costh, scaled
+        margin logits), (B, num_spkrs) each."""
+        return self.amsoftmax(self.classifier_features(x, lengths, keep, generator), labels,
+                              step, self.cfg)

@@ -1,11 +1,10 @@
-"""Attention pooling family (reference ``poolings.py``), mask-aware, eval path.
+"""Attention pooling family (reference ``poolings.py``), mask-aware.
 
 - ``AttentionPooling``   — single learned-vector attention (poolings.py:14-27)
 - ``MHAPooling``         — level-1 multi-head attention (poolings.py:73-109);
                            kernel B1 on the card (``ops/mha_pool.py``)
 - ``HeadAttention``      — level-2 attention over the head vectors
-                           (poolings.py:29-71). Train-time head dropout comes
-                           with the training slice.
+                           (poolings.py:29-71), with train-time head dropout
 - ``DoubleMHAPooling``   — the paper's Double MHA (poolings.py:112-129)
 - ``StatisticalPooling`` — masked mean + std pooling (baseline variant)
 
@@ -13,6 +12,12 @@ Parameters keep the reference's shapes and the JAX package's names:
 ``query`` (d_h, H), ``att`` (dim, 1). The MHA score scale divides by
 sqrt(heads_number) under the reference's ``d_k = heads`` quirk
 (``ModelConfig.mha_dk_is_heads``, poolings.py:75-76).
+
+Head dropout (poolings.py:36-43, JAX ``models/poolings.py:126-153``): in
+``train()`` each head's score is masked to ``NEG_INF`` with probability
+``1 / int(1 / mask_prob)``; a row whose heads are all dropped keeps its
+scores. The keep mask is drawn from an explicit ``torch.Generator``, or
+given, so tests can feed the JAX package's draws.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ import torch
 from torch import nn
 
 from ..config import ModelConfig
-from ..ops.masked_ops import length_mask, masked_softmax
+from ..ops.masked_ops import NEG_INF, length_mask, masked_softmax
 from ..ops.mha_pool import mha_pool
 
 
@@ -54,25 +59,50 @@ class MHAPooling(nn.Module):
         return mha_pool(ht, self.query, lengths, self.heads, self.dk_is_heads)
 
 
+def draw_head_keep(batch: int, heads: int, mask_prob: float,
+                   generator: torch.Generator) -> torch.Tensor:
+    """(batch, heads) bool keep mask: a head is dropped where a draw from
+    U{0 .. int(1/mask_prob) - 1} is 0, as JAX's ``randint(rng, (B, H), 0, n) > 0``."""
+    n_levels = int(1.0 / mask_prob)
+    return torch.randint(0, n_levels, (batch, heads), generator=generator,
+                         device=generator.device) > 0
+
+
 class HeadAttention(nn.Module):
-    def __init__(self, head_size: int):
+    def __init__(self, head_size: int, mask_prob: float = 0.0):
         super().__init__()
+        self.mask_prob = mask_prob
         self.att = nn.Parameter(torch.empty(head_size, 1))
 
-    def forward(self, heads_ctx: torch.Tensor) -> torch.Tensor:
-        """(B, H, d_h) -> (B, d_h), softmax over the heads."""
-        w = torch.softmax((heads_ctx @ self.att)[..., 0], dim=-1)
+    def forward(self, heads_ctx: torch.Tensor, keep: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """(B, H, d_h) -> (B, d_h), softmax over the heads. In ``train()``
+        with ``mask_prob > 0``, heads where ``keep`` (B, H) is False are
+        dropped; without ``keep`` it is drawn from ``generator``."""
+        scores = (heads_ctx @ self.att)[..., 0]
+        if self.training and self.mask_prob > 0:
+            if keep is None:
+                if generator is None:
+                    raise ValueError("head dropout in train mode needs a keep mask or a generator")
+                keep = draw_head_keep(*scores.shape, self.mask_prob, generator)
+            keep = keep.to(scores.device)
+            masked = torch.where(keep, scores, NEG_INF)
+            scores = torch.where(keep.any(dim=-1, keepdim=True), masked, scores)
+        w = torch.softmax(scores, dim=-1)
         return torch.einsum("bh,bhd->bd", w, heads_ctx)
 
 
 class DoubleMHAPooling(nn.Module):
-    def __init__(self, encoder_size: int, heads: int, dk_is_heads: bool = True):
+    def __init__(self, encoder_size: int, heads: int, dk_is_heads: bool = True,
+                 mask_prob: float = 0.0):
         super().__init__()
         self.mha = MHAPooling(encoder_size, heads, dk_is_heads)
-        self.head_att = HeadAttention(encoder_size // heads)
+        self.head_att = HeadAttention(encoder_size // heads, mask_prob)
 
-    def forward(self, ht: torch.Tensor, lengths: Optional[torch.Tensor]) -> torch.Tensor:
-        return self.head_att(self.mha(ht, lengths))
+    def forward(self, ht: torch.Tensor, lengths: Optional[torch.Tensor],
+                keep: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.head_att(self.mha(ht, lengths), keep, generator)
 
 
 class StatisticalPooling(nn.Module):
@@ -107,7 +137,7 @@ def make_pooling(cfg: ModelConfig, encoder_size: int) -> nn.Module:
     if method == "MHA":
         return _FlatMHA(encoder_size, heads, cfg.mha_dk_is_heads)
     if method == "DoubleMHA":
-        return DoubleMHAPooling(encoder_size, heads, cfg.mha_dk_is_heads)
+        return DoubleMHAPooling(encoder_size, heads, cfg.mha_dk_is_heads, cfg.mask_prob)
     if method == "StatisticalPooling":
         return StatisticalPooling()
     raise ValueError(f"unknown pooling_method {method!r}")

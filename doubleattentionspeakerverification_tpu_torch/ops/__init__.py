@@ -1,6 +1,8 @@
-"""Hand-written CUDA kernels of the serving paths, each beside its plain version.
+"""Hand-written CUDA kernels of the serving and training paths, each beside
+its plain version.
 
-- B1 ``mha_pool``: fused masked multi-head attention pooling.
+- B1 ``mha_pool``: fused masked multi-head attention pooling, with its
+  gradient (``MhaPoolFunction``).
 - B2 ``logmel``: fused log-mel spectrogram.
 - B3 ``conv_int8``: SAME 3x3 int8 conv with a fused requantize epilogue
   (the int8 encoder, ``models/quantized.py``).

@@ -5,9 +5,15 @@ package: per-head scores, a masked softmax over time and the per-head
 weighted sum in one pass over the encoder output, with nothing but the
 (B, H, d_h) contexts written back. The plain version is the einsum + masked
 softmax of ``models/poolings.py:mha_pool`` (JAX ``:115-123``), written in
-torch. The backward comes with the training slice: until then ``mha_pool``
-refuses an input off the CPU that requires grad under grad mode, since the
-kernel's output would carry no gradient.
+torch.
+
+``MhaPoolFunction`` gives the pooling its gradient: its forward is the
+kernel on CUDA and the plain version on the CPU, and its backward
+(:func:`mha_pool_backward`) is torch ops, the same on both devices, as the
+JAX package's backward (``ops/pooling_pallas.py:_bwd``) is XLA ops. The
+backward recomputes the weights with ``masked_softmax``, so a row of length
+0 gets zero gradient, the derivative of the zero context both forwards
+give (the JAX ``_bwd`` instead softmaxes such a row to uniform weights).
 
 ``mha_pool`` takes the plain version only for tensors on the CPU; a CUDA
 tensor launches the kernel or raises. ``mha_pool_split_plain`` models the
@@ -162,6 +168,41 @@ def mha_pool_cuda(ht4: torch.Tensor, q_t: torch.Tensor, lengths: torch.Tensor) -
     return out
 
 
+def mha_pool_backward(ht4: torch.Tensor, q_t: torch.Tensor, lengths: torch.Tensor,
+                      g: torch.Tensor):
+    """The gradient of :func:`mha_pool_plain` for the upstream g (B, H, d_h):
+    (d_ht4 in ht4's dtype, d_q_t), in float32. With w the masked softmax
+    weights and gv = <g, ht>: ds = w * (gv - sum_t w * gv),
+    d_ht = w * g + ds * q_t, d_q_t = sum_{b,t} ds * ht."""
+    x = ht4.to(torch.float32)
+    g = g.to(torch.float32)
+    scores = torch.einsum("bthd,hd->bth", x, q_t)
+    w = masked_softmax(scores, length_mask(lengths, x.shape[1])[..., None], dim=1)
+    gv = torch.einsum("bthd,bhd->bth", x, g)
+    ds = w * (gv - (w * gv).sum(dim=1, keepdim=True))
+    d_ht = w[..., None] * g[:, None] + ds[..., None] * q_t
+    d_q = torch.einsum("bth,bthd->hd", ds, x)
+    return d_ht.to(ht4.dtype), d_q
+
+
+class MhaPoolFunction(torch.autograd.Function):
+    """B1 with a gradient: (ht4, q_t, lengths) -> contexts (B, H, d_h)."""
+
+    @staticmethod
+    def forward(ctx, ht4, q_t, lengths):
+        ctx.save_for_backward(ht4, q_t, lengths)
+        if ht4.device.type == "cpu":
+            return mha_pool_plain(ht4, q_t, lengths)
+        return mha_pool_cuda(ht4.contiguous(), q_t, lengths.contiguous())
+
+    @staticmethod
+    def backward(ctx, g):
+        ht4, q_t, lengths = ctx.saved_tensors
+        d_ht, d_q = mha_pool_backward(ht4, q_t, lengths, g)
+        return (d_ht if ctx.needs_input_grad[0] else None,
+                d_q if ctx.needs_input_grad[1] else None, None)
+
+
 def mha_pool(
     ht: torch.Tensor,
     query: torch.Tensor,
@@ -172,7 +213,7 @@ def mha_pool(
     """Counterpart of ``mha_pool_pallas``: ht (B, T, D), query (d_h, H) as in
     the reference -> (B, H, d_h). The score scale is 1/sqrt(heads) under the
     reference's ``d_k = heads`` quirk, else 1/sqrt(d_h); it is folded into
-    the query."""
+    the query, and autograd carries it and the transpose back to ``query``."""
     b, t, d = ht.shape
     d_h = d // heads
     scale = 1.0 / math.sqrt(float(heads if dk_is_heads else d_h))
@@ -180,11 +221,4 @@ def mha_pool(
     q_t = (query.t() * scale).to(torch.float32).contiguous()
     if lengths is None:
         lengths = torch.full((b,), t, dtype=torch.int32, device=ht.device)
-    lengths = lengths.to(torch.int32)
-    if ht.device.type == "cpu":
-        return mha_pool_plain(ht4, q_t, lengths)
-    if torch.is_grad_enabled() and (ht.requires_grad or query.requires_grad):
-        raise RuntimeError(
-            "mha_pool: the CUDA kernel has no backward yet, so ht and query would get no "
-            "gradient; call it under torch.no_grad() or torch.inference_mode()")
-    return mha_pool_cuda(ht4.contiguous(), q_t, lengths.contiguous())
+    return MhaPoolFunction.apply(ht4, q_t, lengths.to(torch.int32))

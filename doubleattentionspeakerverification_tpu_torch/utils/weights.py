@@ -17,8 +17,9 @@ import torch
 
 def params_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """Flat JAX leaves (checkpoint keys ``params/...`` and ``model_state/...``)
-    -> a state dict keyed by the port's module names. Leaves of the training
-    state (optimizer, step, head) are not read."""
+    -> a state dict keyed by the port's module names, the training head's
+    (``pre_layer``, ``amsoftmax/W``) included. The optimizer's leaves and the
+    step counter are not read."""
     state: Dict[str, torch.Tensor] = {}
     for key, arr in flat.items():
         parts = key.split("/")

@@ -166,10 +166,3 @@ def test_get_embedding_cli_int8_is_the_api_path(wav_path, capsys):
     want = SpeakerEmbeddingModel.from_checkpoint(EXAMPLE, device="cpu",
                                                  quantize="int8").embed_wav(wav_path)
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
-
-
-def test_get_embedding_cli_refuses_reference_checkpoints(wav_path, capsys):
-    with pytest.raises(SystemExit):
-        get_embedding(["--audioPath", wav_path, "--modelCheckpoint", "model.chkpt",
-                       "--device", "cpu"])
-    assert "not read by the port" in capsys.readouterr().err

@@ -190,18 +190,25 @@ def test_cuda_wrapper_refuses_other_tensors():
 
 
 @pytest.mark.parametrize("grad_of", ["ht", "query"])
-def test_mha_pool_refuses_grad_off_the_cpu(grad_of):
-    """The CUDA kernel has no backward yet: off the CPU, an input that
-    requires grad is refused under grad mode before the kernel's wrapper is
-    reached; under no_grad / inference_mode the call goes on to the wrapper,
-    which refuses what is not a CUDA tensor."""
+def test_mha_pool_takes_grad_off_the_cpu(grad_of, monkeypatch):
+    """Off the CPU, an input that requires grad under grad mode goes through
+    ``MhaPoolFunction`` (whose forward runs with grad off) to the CUDA
+    wrapper, with no refusal on the way; the wrapper refuses what is not a
+    CUDA tensor."""
     ht = torch.zeros((2, 5, 32), device="meta", requires_grad=grad_of == "ht")
     query = torch.zeros((8, 4), device="meta", requires_grad=grad_of == "query")
-    with pytest.raises(RuntimeError, match="no backward"):
+    reached = []
+    wrapper = tp.mha_pool_cuda
+
+    def spy(*args):
+        reached.append(torch.is_grad_enabled())
+        return wrapper(*args)
+
+    monkeypatch.setattr(tp, "mha_pool_cuda", spy)
+    assert torch.is_grad_enabled()
+    with pytest.raises(ValueError, match="needs CUDA"):
         tp.mha_pool(ht, query, None, 4)
-    for mode in (torch.no_grad, torch.inference_mode):
-        with mode(), pytest.raises(ValueError, match="needs CUDA"):
-            tp.mha_pool(ht, query, None, 4)
+    assert reached == [False]
     assert tp.KERNEL.launches == 0
 
 

@@ -131,7 +131,9 @@ def test_checkpoint_reader_and_config():
     flat, meta = load_checkpoint(os.path.join(ART, "example_model.npz"))
     assert flat["params/vgg/conv11/w"].shape == (3, 3, 1, 4)
     cfg = ExperimentConfig.from_dict(meta["config"])
-    assert cfg.model == ModelConfig(kernel_size=32, embedding_size=64, heads_number=4)
+    assert cfg.model == ModelConfig(kernel_size=32, embedding_size=64, heads_number=4,
+                                    num_spkrs=4)
+    assert cfg.train.learning_rate == 0.002 and cfg.train.gradient_accumulation == 1
     state = params_from_jax(flat)
     assert state["vgg.conv11.weight"].shape == (4, 1, 3, 3)          # OIHW
     assert state["fc1.weight"].shape == (64, 40)                      # (out, in)
