@@ -31,7 +31,19 @@ phase trains the paper's model with its recipe (5994 speakers, Adam at
 step and B1 in every forward): step 1's gradients on the kernel path are
 held to the same step with B1's plain version, one small step to the CPU,
 and three steps, driven with every launch count at 0, are timed beside the
-peak memory. Any failed phase exits non-zero. The last line is
+peak memory. The ``[trainer]`` phase then runs the port's trainer through
+its CLI (``cli/train.py``'s ``main``) at the same width on a seeded wav
+corpus (32 speakers x 8 utterances of 3.5-6 s; validation over 16
+utterances of 2-12 s): two epochs of two steps with the log-mel in the step,
+asynchronous validation every 2 steps and a checkpoint every step. It checks
+finite losses, two EERs in [0, 50], the checkpoints' JAX-format leaves, the
+pruning, B1's and B2's launches (counts read from 0), and that a run stopped
+by ``request_stop`` at step 3 and resumed with ``--requeue`` takes step 4 as
+the uninterrupted run does (cuDNN deterministic; that run copies its
+batches ahead with ``--device_prefetch 2``); it prints the loop's
+steps/s, audio seconds per second, loader wait, dispatch, validation and
+checkpoint times, the peak memory and the isolated step's time. Any failed
+phase exits non-zero. The last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": 1}}
 
@@ -80,6 +92,14 @@ TRAIN_STEPS = 3
 # saturation (each feature normalizes to about +-1), which leaves the
 # gradients before it a near-cancellation; 8 items keep them well-conditioned
 TRAIN_SMALL = (8, 2.0)
+# [trainer]: the corpus, and step 4's loss after a stop at step 3 and a
+# resume, against the uninterrupted run's (cuDNN deterministic, the state
+# read back from float32 checkpoint leaves: equal up to float32 rounding)
+TRAINER_SPEAKERS, TRAINER_UTTS, TRAINER_SECONDS = 32, 8, (3.5, 6.0)
+TRAINER_VALID, TRAINER_VALID_SECONDS = 16, (2.0, 12.0)
+TRAINER_STOP = 3
+TRAINER_BENCH = 4
+TOL_TRAINER_RESUME = 1e-5
 TOL_EMBED = 1e-4         # golden-embedding tolerance (tests/test_example_artifact.py)
 TOL_CONV_FP = 1e-6       # B3 float outputs, relative (int8 outputs must be equal)
 COSINE_GUARD = 0.98      # int8_static vs fp embeddings (models/quantized.py's guard)
@@ -132,6 +152,26 @@ CONV_EDGE = (            # (B, T, F, Cin, Cout): ragged last tile, T=1, tiny F, 
 
 class PhaseError(RuntimeError):
     pass
+
+
+class StopAt:
+    """A trainer logger (the port's ``MetricLogger``, built at first use)
+    that calls ``request_stop`` on its trainer when the ``train`` event of
+    ``step`` is logged: a SIGTERM handler's call, at a known step."""
+
+    def __init__(self, path, step):
+        from doubleattentionspeakerverification_tpu_torch.utils.logging import MetricLogger
+
+        self.inner = MetricLogger(jsonl_path=path)
+        self.trainer, self.stop_step = None, step
+
+    def log(self, event, **fields):
+        self.inner.log(event, **fields)
+        if event == "train" and int(fields["step"]) == self.stop_step and self.trainer:
+            self.trainer.request_stop("chip_smoke")
+
+    def close(self):
+        self.inner.close()
 
 
 def check(ok: bool, msg: str) -> None:
@@ -777,6 +817,209 @@ def phase_train():
     return launches
 
 
+def trainer_corpus(root):
+    """Seeded speech as 16-bit wavs: TRAINER_SPEAKERS x TRAINER_UTTS training
+    utterances with their manifest, and TRAINER_VALID validation utterances
+    spread over TRAINER_VALID_SECONDS (several length buckets) with client
+    and impostor trial lists."""
+    from doubleattentionspeakerverification_tpu_torch.data.wav import encode_wav
+
+    rng = np.random.default_rng(20)
+    for sub in ("train", "valid"):
+        os.makedirs(os.path.join(root, sub))
+    lines = []
+    for s in range(TRAINER_SPEAKERS):
+        for i in range(TRAINER_UTTS):
+            y = seeded_speech(rng, rng.uniform(*TRAINER_SECONDS))
+            with open(os.path.join(root, "train", f"s{s}_u{i}.wav"), "wb") as f:
+                f.write(encode_wav(y, 16000))
+            lines.append(f"s{s}_u{i} {s} -1\n")
+    lo, hi = TRAINER_VALID_SECONDS
+    for j in range(TRAINER_VALID):
+        y = seeded_speech(rng, lo + (hi - lo) * j / (TRAINER_VALID - 1))
+        with open(os.path.join(root, "valid", f"v{j}.wav"), "wb") as f:
+            f.write(encode_wav(y, 16000))
+    n = TRAINER_VALID
+    with open(os.path.join(root, "labels.ndx"), "w") as f:
+        f.writelines(lines)
+    with open(os.path.join(root, "clients.ndx"), "w") as f:
+        f.writelines(f"v{j} v{j + 1}\n" for j in range(0, n, 2))
+    with open(os.path.join(root, "impostors.ndx"), "w") as f:
+        f.writelines(f"v{j} v{(j + 5) % n}\n" for j in range(n))
+
+
+def trainer_argv(root, out, *extra):
+    """The CLI's paper defaults (VGG4L, k=1024, 32 heads, DoubleMHA, emb 400,
+    64 x 2 windows of 3.5 s, Adam 1e-4, weight decay 1e-3, mask_prob 0.3,
+    async validation) on the corpus, wav PCM with the log-mel in the step."""
+    return ["--train_data_dir", os.path.join(root, "train"),
+            "--valid_data_dir", os.path.join(root, "valid"),
+            "--train_labels_path", os.path.join(root, "labels.ndx"),
+            "--valid_clients", os.path.join(root, "clients.ndx"),
+            "--valid_impostors", os.path.join(root, "impostors.ndx"),
+            "--out_dir", out, "--device", DEVICE, "--data_source", "wav", "--wav_mode", "pcm",
+            "--max_epochs", "2", "--validate_every", "2", "--checkpoint_every", "1",
+            "--print_every", "1", *extra]
+
+
+def trainer_events(out):
+    (name,) = [f for f in os.listdir(out) if f.endswith("_metrics.jsonl")]
+    with open(os.path.join(out, name)) as f:
+        return [json.loads(line) for line in f]
+
+
+def trainer_cli(argv, log):
+    """``cli/train.py``'s main with its console lines appended to ``log``."""
+    import contextlib
+
+    from doubleattentionspeakerverification_tpu_torch.cli import train as cli
+
+    with open(log, "a") as f, contextlib.redirect_stdout(f):
+        rc = cli.main(argv)
+    check(rc == 0, f"[trainer] cli.train.main exited {rc}; see {log}")
+
+
+def phase_trainer(smi):
+    """The port's trainer through its CLI at paper width (see the module
+    docstring); returns B1's and B2's launches in the main run."""
+    import contextlib
+    import shutil
+    import tempfile
+
+    import torch
+
+    from doubleattentionspeakerverification_tpu_torch import ops
+    from doubleattentionspeakerverification_tpu_torch.cli import train as cli
+    from doubleattentionspeakerverification_tpu_torch.config import ExperimentConfig
+    from doubleattentionspeakerverification_tpu_torch.models.classifier import SpeakerClassifier
+    from doubleattentionspeakerverification_tpu_torch.training.trainer import Trainer
+    from doubleattentionspeakerverification_tpu_torch.utils.checkpoint import load_checkpoint
+    from doubleattentionspeakerverification_tpu_torch.utils.weights import train_state_to_jax
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+    log = os.path.join(root, "console.log")
+    try:
+        t0 = time.perf_counter()
+        trainer_corpus(root)
+        print(f"[trainer] corpus: {TRAINER_SPEAKERS} x {TRAINER_UTTS} training wavs of "
+              f"{TRAINER_SECONDS[0]}-{TRAINER_SECONDS[1]} s, {TRAINER_VALID} validation wavs "
+              f"of {TRAINER_VALID_SECONDS[0]}-{TRAINER_VALID_SECONDS[1]} s, written in "
+              f"{time.perf_counter() - t0:.1f} s")
+
+        # the main run, every kernel count at 0
+        out = os.path.join(root, "run")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in ops.KERNELS:
+            k.launches = 0
+        t0 = time.perf_counter()
+        trainer_cli(trainer_argv(root, out, "--post_step_bench", str(TRAINER_BENCH)), log)
+        wall = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in ops.KERNELS}
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        events = trainer_events(out)
+
+        def of(kind):
+            return [e for e in events if e["event"] == kind]
+
+        (mode,) = of("source_mode")
+        check(mode["mode"] == "wav_pcm", f"[trainer] source mode {mode}")
+        train = of("train")
+        check([int(e["step"]) for e in train] == [1, 2, 3, 4]
+              and all(math.isfinite(e["xent"]) for e in train), f"[trainer] train events {train}")
+        val = of("validate")
+        check(len(val) == 2 and all(0.0 <= e["eer"] <= 50.0 for e in val),
+              f"[trainer] validations {val}")
+        for name in ("mha_pool", "logmel"):
+            check(launches[name] > 0, f"kernel {name} was never launched on the [trainer] path")
+        (cfg_file,) = [f for f in os.listdir(out) if f.endswith("_config.json")]
+        with open(os.path.join(out, cfg_file)) as f:
+            cfg = ExperimentConfig.from_json(f.read())
+        check(cfg.model.num_spkrs == TRAINER_SPEAKERS, f"[trainer] num_spkrs {cfg.model.num_spkrs}")
+        with torch.device("meta"):
+            meta_model = SpeakerClassifier(cfg.model)
+        want = set(train_state_to_jax(
+            {k: torch.zeros(v.shape, dtype=v.dtype) for k, v in meta_model.state_dict().items()},
+            {}, "Adam", 0, cfg.train.learning_rate))
+        files = sorted(f for f in os.listdir(out) if f.endswith(".npz"))
+        for f in files:
+            check(set(load_checkpoint(os.path.join(out, f))[0]) == want,
+                  f"[trainer] {f}: leaves differ from the JAX-format key set")
+        periodic = sorted(int(f.rsplit("_", 1)[1][:-4]) for f in files if "_best_" not in f)
+        check(periodic == [2, 3, 4], f"[trainer] periodic checkpoints left {periodic}: the "
+              f"newest {cfg.train.keep_checkpoints} of 4 should remain")
+        secs = [e["elapsed_min"] * 60 for e in train]
+        saves = of("ckpt_save")
+        (bench,) = of("step_bench")
+        print(f"[trainer] kernel launches in the run (4 steps, 2 validations): "
+              f"{json.dumps(launches)}")
+        print(f"[trainer] losses " + ", ".join(f"{e['xent']:.6f}" for e in train)
+              + "; EERs " + ", ".join(f"{e['eer']:.4f} (exact {e['eer_exact']:.4f})" for e in val)
+              + f"; checkpoints left: {files}")
+        print(f"[trainer] loop: {len(train) / sum(secs):.3f} steps/s over the 4 steps, "
+              f"{(len(train) - 1) / sum(secs[1:]):.3f} steps/s over steps 2-4; audio_s_per_s "
+              + ", ".join(f"{e['audio_s_per_s']:.1f}" for e in train)
+              + "; loader_wait_s " + ", ".join(f"{e['loader_wait_s']:.3f}" for e in train)
+              + "; dispatch_s " + ", ".join(f"{e['dispatch_s']:.3f}" for e in train))
+        print(f"[trainer] validation elapsed_s " + ", ".join(f"{e['elapsed_s']:.3f}" for e in val)
+              + "; checkpoint blocked_s " + ", ".join(
+                  f"{e['kind']} {e['step']:.0f}: {e['blocked_s']:.3f}" for e in saves)
+              + f"; isolated step (post_step_bench, {bench['steps']:.0f} steps, CUDA events) "
+              f"{bench['ms_per_step']:.1f} ms against {1e3 * sum(secs[1:]) / 3:.1f} ms a step "
+              f"in the loop (steps 2-4); run wall {wall:.1f} s; peak "
+              f"torch.cuda.max_memory_allocated {peak_gib:.2f} GiB; on {smi}")
+
+        # a stop at step 3, then --requeue, against the uninterrupted run
+        quiet = ("--validate_every", "0", "--checkpoint_every", "0")
+        torch.backends.cudnn.deterministic = True
+        try:
+            # the uninterrupted run copies its batches ahead on a side stream
+            full = os.path.join(root, "full")
+            trainer_cli(trainer_argv(root, full, *quiet, "--device_prefetch", "2"), log)
+            stopped = os.path.join(root, "stopped")
+            argv = trainer_argv(root, stopped, *quiet)
+            with open(log, "a") as f, contextlib.redirect_stdout(f):
+                cfg = cli.build_config(cli.make_parser().parse_args(argv))
+                stop_log = StopAt(os.path.join(root, "stopped.jsonl"), TRAINER_STOP)
+                tr = Trainer(cfg, logger=stop_log, device=DEVICE)
+                stop_log.trainer = tr
+                tr.train()
+                stop_log.close()
+            check(tr.preempted and tr.step == TRAINER_STOP,
+                  f"[trainer] request_stop at step {TRAINER_STOP}: stopped at {tr.step}")
+            del tr
+            trainer_cli(argv + ["--requeue"], log)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        full_train = [e for e in trainer_events(full) if e["event"] == "train"]
+        ref = {int(e["step"]): e["xent"] for e in full_train}
+        secs = [e["elapsed_min"] * 60 for e in full_train[1:]]
+        print(f"[trainer] the loop without validation or checkpoints (cuDNN deterministic, "
+              f"--device_prefetch 2): {len(secs) / sum(secs):.3f} steps/s over steps 2-4; "
+              "audio_s_per_s " + ", ".join(f"{e['audio_s_per_s']:.1f}" for e in full_train)
+              + "; loader_wait_s " + ", ".join(f"{e['loader_wait_s']:.3f}" for e in full_train)
+              + "; dispatch_s " + ", ".join(f"{e['dispatch_s']:.3f}" for e in full_train))
+        got = {int(e["step"]): e["xent"] for e in trainer_events(stopped) if e["event"] == "train"}
+        with open(os.path.join(root, "stopped.jsonl")) as f:
+            got.update({int(e["step"]): e["xent"] for e in map(json.loads, f)
+                        if e["event"] == "train"})
+        (resume,) = [e for e in trainer_events(stopped) if e["event"] == "resume"]
+        check(sorted(got) == sorted(ref) == [1, 2, 3, 4] and resume["step"] == TRAINER_STOP,
+              f"[trainer] steps: stopped and resumed {sorted(got)}, uninterrupted {sorted(ref)}")
+        err = abs(got[4] - ref[4]) / abs(ref[4])
+        check(err <= TOL_TRAINER_RESUME, f"[trainer] step 4 after a stop at step "
+              f"{TRAINER_STOP} and --requeue: loss {got[4]} vs uninterrupted {ref[4]}")
+        print(f"[trainer] stopped by request_stop at step {TRAINER_STOP} (mid-epoch 1), resumed "
+              f"with --requeue (in-epoch skip {resume['in_epoch_skip']:.0f}): losses "
+              + ", ".join(f"{got[k]:.6f}" for k in sorted(got)) + "; uninterrupted "
+              + ", ".join(f"{ref[k]:.6f}" for k in sorted(ref))
+              + f"; step 4 relative difference {err:.3g} (tol {TOL_TRAINER_RESUME}, cuDNN "
+              "deterministic; the uninterrupted run with --device_prefetch 2)")
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def phase_example_checkpoint():
     from doubleattentionspeakerverification_tpu_torch.api import SpeakerEmbeddingModel
 
@@ -1198,6 +1441,7 @@ def main() -> int:
         print(f"[forward] B=8 x 10 s: float32 {fp_ms:.3f} ms, int8_static {q_ms:.3f} ms "
               f"({fp_ms / q_ms:.2f}x) device time on {smi}")
         train_launches = phase_train()
+        phase_trainer(smi)
         print(f"[B1 backward] T'={POOL_MAIN}: " + json.dumps(dict(
             pool_bwd_stats, launches_per_train_step=train_launches["mha_pool"] // TRAIN_STEPS)))
     except PhaseError as e:

@@ -136,3 +136,43 @@ def extract_normalized(wave: torch.Tensor, cfg: FeatureConfig, mode: str = "cmn"
     from ..ops.logmel import log_mel_spectrogram_fused
 
     return normalize_features(log_mel_spectrogram_fused(wave, cfg), mode)
+
+
+def log_mel_spectrogram_np(wave: np.ndarray, cfg: FeatureConfig) -> np.ndarray:
+    """Host (numpy) log-mel, a copy of the JAX package's: pocketfft rFFT and
+    a dense mel product. The fallback of the native host-DSP kernel
+    (``native/logmel.cpp``) when that library is not built."""
+    mel_t = dft_mel_constants(cfg)[2]
+    window = padded_stft_window(cfg.win_length, cfg.n_fft, dtype=np.float32)
+    n_fr = num_frames(wave.shape[-1], cfg)
+    if n_fr <= 0:
+        return np.zeros(wave.shape[:-1] + (0, cfg.n_mels), np.float32)
+    y = wave.astype(np.float32) * cfg.rescale
+    pre = np.concatenate(
+        [y[..., :1] * (1.0 - cfg.preemphasis), y[..., 1:] - cfg.preemphasis * y[..., :-1]],
+        axis=-1,
+    )
+    idx = np.arange(n_fr)[:, None] * cfg.hop_length + np.arange(cfg.n_fft)[None, :]
+    frames = pre[..., idx] * window                          # (..., T, n_fft)
+    mag = np.abs(np.fft.rfft(frames, n=cfg.n_fft, axis=-1))  # (..., T, n_bins)
+    melspec = mag.astype(np.float32) @ mel_t                 # (..., T, n_mels)
+    return np.log(np.maximum(cfg.log_floor, melspec)).astype(np.float32)
+
+
+def make_device_logmel(cfg: FeatureConfig, device="cuda"):
+    """Host-callable ``wave (N,) float32 -> raw (T, n_mels) np.ndarray`` with
+    the log-mel on ``device``: kernel B2 on the card, its plain version on
+    the CPU. The counterpart of the JAX package's ``make_bucketed_logmel``;
+    nothing is compiled per length, so the wave is not padded to a grid."""
+    from ..ops.logmel import log_mel_spectrogram_fused
+
+    dev = torch.device(device)
+
+    @torch.no_grad()
+    def extract(wave: np.ndarray) -> np.ndarray:
+        w = torch.from_numpy(np.ascontiguousarray(wave, np.float32)).to(dev)
+        if num_frames(w.shape[0], cfg) == 0:
+            return np.zeros((0, cfg.n_mels), np.float32)
+        return log_mel_spectrogram_fused(w, cfg).cpu().numpy()
+
+    return extract

@@ -13,8 +13,17 @@ In wav mode (``waves`` in the batch) the log-mel runs in the step: int16
 PCM is divided by 32768, the log-mel is kernel B2 on the card, and the
 normalization is masked by the valid frames. The MHA pooling is kernel B1
 with its backward (``ops/mha_pool.py``). The step runs on the card unless
-the caller asks for the CPU; random draws come only from the step's
-``torch.Generator``, and the head-dropout keep masks can be passed in.
+the caller asks for the CPU.
+
+Random draws (head dropout, SpecAugment) come only from the step's
+``torch.Generator``, reseeded before every optimizer step from
+(``seed + 17``, step), as the JAX trainer folds the step into
+``PRNGKey(seed + 17)``: a run resumed at any step draws what the
+uninterrupted run drew there. The head-dropout keep masks can be passed in.
+
+A parameter that no microbatch reached gets a zero gradient before the
+optimizer steps, as optax decays and moves every leaf; torch would skip a
+parameter whose ``.grad`` is None.
 """
 
 from __future__ import annotations
@@ -34,6 +43,12 @@ from ..ops.logmel import log_mel_spectrogram_fused
 from ..utils.device import resolve_device
 
 Batch = Dict[str, object]
+
+
+def step_seed(seed: int, step: int) -> int:
+    """The generator seed of optimizer step ``step`` of a run seeded with
+    ``seed``: a pure function of the two."""
+    return int(np.random.SeedSequence([seed + 17, step]).generate_state(1, np.uint64)[0])
 
 
 def _tensor(x, device: torch.device) -> torch.Tensor:
@@ -63,7 +78,8 @@ class TrainStep:
     """``step(batch, keep=None) -> {"loss", "accuracy"}``: one optimizer step,
     the mean loss and accuracy over its G microbatches as 0-d tensors.
     ``keep`` is a sequence of G (B, heads) bool head-dropout masks; without
-    it they are drawn from ``generator``. ``step`` counts optimizer updates."""
+    it they are drawn from ``generator``, reseeded by :func:`step_seed` for
+    each step. ``step`` counts optimizer updates; a resume sets it."""
 
     def __init__(self, cfg: ExperimentConfig, model: SpeakerClassifier,
                  optimizer: torch.optim.Optimizer, device: torch.device,
@@ -90,6 +106,7 @@ class TrainStep:
         feats, lengths = prepare_inputs(batch, self.cfg, self.device)
         labels = _tensor(batch["labels"], self.device).to(torch.int64)
         g = feats.shape[0]
+        self.generator.manual_seed(step_seed(tcfg.seed, self.step))
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
         loss_sum = torch.zeros((), device=self.device)
@@ -105,10 +122,11 @@ class TrainStep:
             loss.backward()
             loss_sum += loss.detach()
             acc_sum += acc
-        if tcfg.grad_accum_mean:
-            for p in self.model.parameters():
-                if p.grad is not None:
-                    p.grad.div_(g)
+        for p in self.model.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            elif tcfg.grad_accum_mean:
+                p.grad.div_(g)
         self.optimizer.step()
         self.step += 1
         return {"loss": loss_sum / g, "accuracy": acc_sum / g}
@@ -120,16 +138,15 @@ def make_train_step(cfg: ExperimentConfig, model: SpeakerClassifier,
     """The train step of ``model`` on ``device`` (the card unless "cpu").
     ``optimizer`` is built over ``model.parameters()``
     (``training.optimizers.make_optimizer``); the model is moved to the
-    device in place. The generator defaults to a CPU one seeded with
-    ``cfg.train.seed``, so the same seed draws the same masks on either
-    device."""
+    device in place. The generator defaults to a CPU one, so the same seed
+    draws the same masks on either device."""
     if cfg.train.criterion not in ("cross_entropy", "focal"):
         raise ValueError(f"unknown criterion {cfg.train.criterion!r}")
     if cfg.train.criterion == "focal" and cfg.model.classifier_chunk > 0:
         raise ValueError("criterion='focal' needs full logits; incompatible with classifier_chunk")
     dev = resolve_device(device)
     if generator is None:
-        generator = torch.Generator().manual_seed(cfg.train.seed)
+        generator = torch.Generator()
     return TrainStep(cfg, model.to(dev), optimizer, dev, generator)
 
 
