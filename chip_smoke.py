@@ -42,8 +42,27 @@ by ``request_stop`` at step 3 and resumed with ``--requeue`` takes step 4 as
 the uninterrupted run does (cuDNN deterministic; that run copies its
 batches ahead with ``--device_prefetch 2``); it prints the loop's
 steps/s, audio seconds per second, loader wait, dispatch, validation and
-checkpoint times, the peak memory and the isolated step's time. Any failed
-phase exits non-zero. The last line is
+checkpoint times, the peak memory and the isolated step's time.
+
+On that corpus, ``[score_trials]`` drives ``cli/score_trials.py``'s and
+``cli/train_plda.py``'s ``main`` at paper width (seed 0, written as a
+JAX-format ``.npz``; its weights made input-driven, as a trained model's
+are, so cosines spread over [-1, 1]): float32 in wav mode (B2 once an
+utterance, B1 once a bucketed batch; each score against the cosine of
+``embed_wave``'s embeddings of the same two waves; the extraction's
+utterances and audio seconds per second), ``int8_static`` calibrated on a
+wav and again on the saved scales (7 B3 launches a forward; the same
+bytes), AS-Norm against the 256 training utterances' store at top-0 and
+top-50 and PLDA trained on that store (each line equal to a host
+recomputation from the stores). ``[score_trials example]`` scores
+``example_model.npz`` over the example corpus on the card and on the CPU
+against ``golden_scores.json``; ``[extract_features]`` writes the 16
+validation wavs' pickles (B2 once a file) against B2's plain version;
+``[alignments]`` holds the example checkpoint's attention weights, card
+against CPU; ``[export]`` turns the trainer's newest checkpoint into a
+reference ``.chkpt`` that embeds on the card as the ``.npz`` does. Each
+counts its kernels' launches from 0. Any failed phase exits non-zero. The
+last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": 1}}
 
@@ -55,8 +74,10 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -134,6 +155,14 @@ POOL_SINGLE = (250, 1000)        # T' of one upload alone (B=1): 10 s, and a 40 
 POOL_SWEEP = ((1, 4, 1), (1, 2, 1), (1, 2, 2), (1, 1, 4), (1, 1, 8), (2, 1, 4), (2, 1, 8))
 POOL_FLUSH_BYTES = 64 * 2**20    # written between launches for B1's cold-L2 time
 SERVE_SECONDS = (1.0, 2.5, 4.0, 4.5, 8.0, 8.5, 9.0, 12.0)
+# [score_trials]: AS-Norm top-K cases; each written score against the cosine of
+# embed_wave's embeddings of the same two waves (one upload at a time, so other
+# batch shapes and cuDNN algorithms; scores are written with 6 decimals)
+SCORE_TOPK = (0, 50)
+TOL_SCORE_EMBED = 1e-4
+TOL_SCORE_DEVICES = 1e-4  # example checkpoint: the card's score file against the CPU's
+TOL_ALIGN = 1e-5          # alignments, card vs CPU (the CPU tests hold the port to JAX at this)
+TOL_EXPORT = 1e-6         # the exported .chkpt's embeddings against the .npz's, both on the card
 CONV_B = 8               # 8 uploads of 10 s: T = 1000 frames at the first conv
 CONV_PAPER = (           # (name, T, F, Cin, Cout) of the seven B3 convs of VGG4L k=1024
     ("conv12", 1000, 80, 128, 128), ("conv21", 500, 40, 128, 256),
@@ -485,11 +514,24 @@ def phase_pool():
         lens = torch.full((1,), tp, dtype=torch.int32, device=DEVICE)
         err = pool_check(ht4, q_t, lens, f"B=1 T'={tp} float32")
         worst = max(worst, err)
+        ref = mha_pool.mha_pool_plain(ht4, q_t, lens)
+        q4 = q_t[None, :, None, :].contiguous()
+        kv = ht4.permute(0, 2, 1, 3).contiguous()
+        mask = torch.ones((1, 1, 1, tp), dtype=torch.bool, device=DEVICE)
+
+        def library():
+            return F.scaled_dot_product_attention(q4, kv, kv, attn_mask=mask, scale=1.0)
+
+        lib = library()[:, :, 0]
         ms = cuda_ms(lambda: mha_pool.mha_pool_cuda(ht4, q_t, lens), 50)
+        plain_ms = cuda_ms(lambda: mha_pool.mha_pool_plain(ht4, q_t, lens), 20)
+        library_ms = cuda_ms(library, 20)
         b_ms, b_by = bound_ms((tp * POOL_H * POOL_DH + q_t.numel() + 1 + POOL_H * POOL_DH) * 4,
                               4.0 * tp * POOL_H * POOL_DH, FP32_OPS_PER_S)
         print(f"[B1 mha_pool] B=1 T'={tp} H={POOL_H} d_h={POOL_DH}: max|d|={err:.3g} "
-              f"(tol {TOL_POOL}); kernel_ms={ms:.5f} bound_ms={b_ms:.5f} ({b_by}); "
+              f"(tol {TOL_POOL}); kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} "
+              f"library_ms={library_ms:.5f} bound_ms={b_ms:.5f} ({b_by}); sdpa max|d|="
+              f"{float((lib - ref).abs().max()):.3g}; "
               f"{pool_plan(1, tp, POOL_H, POOL_DH, torch.float32)}")
         pool_sweep(ht4, q_t, lens, ms)
     rng = np.random.default_rng(8)
@@ -879,12 +921,11 @@ def trainer_cli(argv, log):
     check(rc == 0, f"[trainer] cli.train.main exited {rc}; see {log}")
 
 
-def phase_trainer(smi):
+def phase_trainer(root, smi):
     """The port's trainer through its CLI at paper width (see the module
-    docstring); returns B1's and B2's launches in the main run."""
+    docstring), its corpus and runs under ``root`` (kept for the phases
+    after it); returns B1's and B2's launches in the main run."""
     import contextlib
-    import shutil
-    import tempfile
 
     import torch
 
@@ -896,128 +937,124 @@ def phase_trainer(smi):
     from doubleattentionspeakerverification_tpu_torch.utils.checkpoint import load_checkpoint
     from doubleattentionspeakerverification_tpu_torch.utils.weights import train_state_to_jax
 
-    root = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
     log = os.path.join(root, "console.log")
+    t0 = time.perf_counter()
+    trainer_corpus(root)
+    print(f"[trainer] corpus: {TRAINER_SPEAKERS} x {TRAINER_UTTS} training wavs of "
+          f"{TRAINER_SECONDS[0]}-{TRAINER_SECONDS[1]} s, {TRAINER_VALID} validation wavs "
+          f"of {TRAINER_VALID_SECONDS[0]}-{TRAINER_VALID_SECONDS[1]} s, written in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # the main run, every kernel count at 0
+    out = os.path.join(root, "run")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in ops.KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    trainer_cli(trainer_argv(root, out, "--post_step_bench", str(TRAINER_BENCH)), log)
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in ops.KERNELS}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    events = trainer_events(out)
+
+    def of(kind):
+        return [e for e in events if e["event"] == kind]
+
+    (mode,) = of("source_mode")
+    check(mode["mode"] == "wav_pcm", f"[trainer] source mode {mode}")
+    train = of("train")
+    check([int(e["step"]) for e in train] == [1, 2, 3, 4]
+          and all(math.isfinite(e["xent"]) for e in train), f"[trainer] train events {train}")
+    val = of("validate")
+    check(len(val) == 2 and all(0.0 <= e["eer"] <= 50.0 for e in val),
+          f"[trainer] validations {val}")
+    for name in ("mha_pool", "logmel"):
+        check(launches[name] > 0, f"kernel {name} was never launched on the [trainer] path")
+    (cfg_file,) = [f for f in os.listdir(out) if f.endswith("_config.json")]
+    with open(os.path.join(out, cfg_file)) as f:
+        cfg = ExperimentConfig.from_json(f.read())
+    check(cfg.model.num_spkrs == TRAINER_SPEAKERS, f"[trainer] num_spkrs {cfg.model.num_spkrs}")
+    with torch.device("meta"):
+        meta_model = SpeakerClassifier(cfg.model)
+    want = set(train_state_to_jax(
+        {k: torch.zeros(v.shape, dtype=v.dtype) for k, v in meta_model.state_dict().items()},
+        {}, "Adam", 0, cfg.train.learning_rate))
+    files = sorted(f for f in os.listdir(out) if f.endswith(".npz"))
+    for f in files:
+        check(set(load_checkpoint(os.path.join(out, f))[0]) == want,
+              f"[trainer] {f}: leaves differ from the JAX-format key set")
+    periodic = sorted(int(f.rsplit("_", 1)[1][:-4]) for f in files if "_best_" not in f)
+    check(periodic == [2, 3, 4], f"[trainer] periodic checkpoints left {periodic}: the "
+          f"newest {cfg.train.keep_checkpoints} of 4 should remain")
+    secs = [e["elapsed_min"] * 60 for e in train]
+    saves = of("ckpt_save")
+    (bench,) = of("step_bench")
+    print(f"[trainer] kernel launches in the run (4 steps, 2 validations): "
+          f"{json.dumps(launches)}")
+    print(f"[trainer] losses " + ", ".join(f"{e['xent']:.6f}" for e in train)
+          + "; EERs " + ", ".join(f"{e['eer']:.4f} (exact {e['eer_exact']:.4f})" for e in val)
+          + f"; checkpoints left: {files}")
+    print(f"[trainer] loop: {len(train) / sum(secs):.3f} steps/s over the 4 steps, "
+          f"{(len(train) - 1) / sum(secs[1:]):.3f} steps/s over steps 2-4; audio_s_per_s "
+          + ", ".join(f"{e['audio_s_per_s']:.1f}" for e in train)
+          + "; loader_wait_s " + ", ".join(f"{e['loader_wait_s']:.3f}" for e in train)
+          + "; dispatch_s " + ", ".join(f"{e['dispatch_s']:.3f}" for e in train))
+    print(f"[trainer] validation elapsed_s " + ", ".join(f"{e['elapsed_s']:.3f}" for e in val)
+          + "; checkpoint blocked_s " + ", ".join(
+              f"{e['kind']} {e['step']:.0f}: {e['blocked_s']:.3f}" for e in saves)
+          + f"; isolated step (post_step_bench, {bench['steps']:.0f} steps, CUDA events) "
+          f"{bench['ms_per_step']:.1f} ms against {1e3 * sum(secs[1:]) / 3:.1f} ms a step "
+          f"in the loop (steps 2-4); run wall {wall:.1f} s; peak "
+          f"torch.cuda.max_memory_allocated {peak_gib:.2f} GiB; on {smi}")
+
+    # a stop at step 3, then --requeue, against the uninterrupted run
+    quiet = ("--validate_every", "0", "--checkpoint_every", "0")
+    torch.backends.cudnn.deterministic = True
     try:
-        t0 = time.perf_counter()
-        trainer_corpus(root)
-        print(f"[trainer] corpus: {TRAINER_SPEAKERS} x {TRAINER_UTTS} training wavs of "
-              f"{TRAINER_SECONDS[0]}-{TRAINER_SECONDS[1]} s, {TRAINER_VALID} validation wavs "
-              f"of {TRAINER_VALID_SECONDS[0]}-{TRAINER_VALID_SECONDS[1]} s, written in "
-              f"{time.perf_counter() - t0:.1f} s")
-
-        # the main run, every kernel count at 0
-        out = os.path.join(root, "run")
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        for k in ops.KERNELS:
-            k.launches = 0
-        t0 = time.perf_counter()
-        trainer_cli(trainer_argv(root, out, "--post_step_bench", str(TRAINER_BENCH)), log)
-        wall = time.perf_counter() - t0
-        launches = {k.name: k.launches for k in ops.KERNELS}
-        peak_gib = torch.cuda.max_memory_allocated() / 2**30
-        events = trainer_events(out)
-
-        def of(kind):
-            return [e for e in events if e["event"] == kind]
-
-        (mode,) = of("source_mode")
-        check(mode["mode"] == "wav_pcm", f"[trainer] source mode {mode}")
-        train = of("train")
-        check([int(e["step"]) for e in train] == [1, 2, 3, 4]
-              and all(math.isfinite(e["xent"]) for e in train), f"[trainer] train events {train}")
-        val = of("validate")
-        check(len(val) == 2 and all(0.0 <= e["eer"] <= 50.0 for e in val),
-              f"[trainer] validations {val}")
-        for name in ("mha_pool", "logmel"):
-            check(launches[name] > 0, f"kernel {name} was never launched on the [trainer] path")
-        (cfg_file,) = [f for f in os.listdir(out) if f.endswith("_config.json")]
-        with open(os.path.join(out, cfg_file)) as f:
-            cfg = ExperimentConfig.from_json(f.read())
-        check(cfg.model.num_spkrs == TRAINER_SPEAKERS, f"[trainer] num_spkrs {cfg.model.num_spkrs}")
-        with torch.device("meta"):
-            meta_model = SpeakerClassifier(cfg.model)
-        want = set(train_state_to_jax(
-            {k: torch.zeros(v.shape, dtype=v.dtype) for k, v in meta_model.state_dict().items()},
-            {}, "Adam", 0, cfg.train.learning_rate))
-        files = sorted(f for f in os.listdir(out) if f.endswith(".npz"))
-        for f in files:
-            check(set(load_checkpoint(os.path.join(out, f))[0]) == want,
-                  f"[trainer] {f}: leaves differ from the JAX-format key set")
-        periodic = sorted(int(f.rsplit("_", 1)[1][:-4]) for f in files if "_best_" not in f)
-        check(periodic == [2, 3, 4], f"[trainer] periodic checkpoints left {periodic}: the "
-              f"newest {cfg.train.keep_checkpoints} of 4 should remain")
-        secs = [e["elapsed_min"] * 60 for e in train]
-        saves = of("ckpt_save")
-        (bench,) = of("step_bench")
-        print(f"[trainer] kernel launches in the run (4 steps, 2 validations): "
-              f"{json.dumps(launches)}")
-        print(f"[trainer] losses " + ", ".join(f"{e['xent']:.6f}" for e in train)
-              + "; EERs " + ", ".join(f"{e['eer']:.4f} (exact {e['eer_exact']:.4f})" for e in val)
-              + f"; checkpoints left: {files}")
-        print(f"[trainer] loop: {len(train) / sum(secs):.3f} steps/s over the 4 steps, "
-              f"{(len(train) - 1) / sum(secs[1:]):.3f} steps/s over steps 2-4; audio_s_per_s "
-              + ", ".join(f"{e['audio_s_per_s']:.1f}" for e in train)
-              + "; loader_wait_s " + ", ".join(f"{e['loader_wait_s']:.3f}" for e in train)
-              + "; dispatch_s " + ", ".join(f"{e['dispatch_s']:.3f}" for e in train))
-        print(f"[trainer] validation elapsed_s " + ", ".join(f"{e['elapsed_s']:.3f}" for e in val)
-              + "; checkpoint blocked_s " + ", ".join(
-                  f"{e['kind']} {e['step']:.0f}: {e['blocked_s']:.3f}" for e in saves)
-              + f"; isolated step (post_step_bench, {bench['steps']:.0f} steps, CUDA events) "
-              f"{bench['ms_per_step']:.1f} ms against {1e3 * sum(secs[1:]) / 3:.1f} ms a step "
-              f"in the loop (steps 2-4); run wall {wall:.1f} s; peak "
-              f"torch.cuda.max_memory_allocated {peak_gib:.2f} GiB; on {smi}")
-
-        # a stop at step 3, then --requeue, against the uninterrupted run
-        quiet = ("--validate_every", "0", "--checkpoint_every", "0")
-        torch.backends.cudnn.deterministic = True
-        try:
-            # the uninterrupted run copies its batches ahead on a side stream
-            full = os.path.join(root, "full")
-            trainer_cli(trainer_argv(root, full, *quiet, "--device_prefetch", "2"), log)
-            stopped = os.path.join(root, "stopped")
-            argv = trainer_argv(root, stopped, *quiet)
-            with open(log, "a") as f, contextlib.redirect_stdout(f):
-                cfg = cli.build_config(cli.make_parser().parse_args(argv))
-                stop_log = StopAt(os.path.join(root, "stopped.jsonl"), TRAINER_STOP)
-                tr = Trainer(cfg, logger=stop_log, device=DEVICE)
-                stop_log.trainer = tr
-                tr.train()
-                stop_log.close()
-            check(tr.preempted and tr.step == TRAINER_STOP,
-                  f"[trainer] request_stop at step {TRAINER_STOP}: stopped at {tr.step}")
-            del tr
-            trainer_cli(argv + ["--requeue"], log)
-        finally:
-            torch.backends.cudnn.deterministic = False
-        full_train = [e for e in trainer_events(full) if e["event"] == "train"]
-        ref = {int(e["step"]): e["xent"] for e in full_train}
-        secs = [e["elapsed_min"] * 60 for e in full_train[1:]]
-        print(f"[trainer] the loop without validation or checkpoints (cuDNN deterministic, "
-              f"--device_prefetch 2): {len(secs) / sum(secs):.3f} steps/s over steps 2-4; "
-              "audio_s_per_s " + ", ".join(f"{e['audio_s_per_s']:.1f}" for e in full_train)
-              + "; loader_wait_s " + ", ".join(f"{e['loader_wait_s']:.3f}" for e in full_train)
-              + "; dispatch_s " + ", ".join(f"{e['dispatch_s']:.3f}" for e in full_train))
-        got = {int(e["step"]): e["xent"] for e in trainer_events(stopped) if e["event"] == "train"}
-        with open(os.path.join(root, "stopped.jsonl")) as f:
-            got.update({int(e["step"]): e["xent"] for e in map(json.loads, f)
-                        if e["event"] == "train"})
-        (resume,) = [e for e in trainer_events(stopped) if e["event"] == "resume"]
-        check(sorted(got) == sorted(ref) == [1, 2, 3, 4] and resume["step"] == TRAINER_STOP,
-              f"[trainer] steps: stopped and resumed {sorted(got)}, uninterrupted {sorted(ref)}")
-        err = abs(got[4] - ref[4]) / abs(ref[4])
-        check(err <= TOL_TRAINER_RESUME, f"[trainer] step 4 after a stop at step "
-              f"{TRAINER_STOP} and --requeue: loss {got[4]} vs uninterrupted {ref[4]}")
-        print(f"[trainer] stopped by request_stop at step {TRAINER_STOP} (mid-epoch 1), resumed "
-              f"with --requeue (in-epoch skip {resume['in_epoch_skip']:.0f}): losses "
-              + ", ".join(f"{got[k]:.6f}" for k in sorted(got)) + "; uninterrupted "
-              + ", ".join(f"{ref[k]:.6f}" for k in sorted(ref))
-              + f"; step 4 relative difference {err:.3g} (tol {TOL_TRAINER_RESUME}, cuDNN "
-              "deterministic; the uninterrupted run with --device_prefetch 2)")
-        return launches
+        # the uninterrupted run copies its batches ahead on a side stream
+        full = os.path.join(root, "full")
+        trainer_cli(trainer_argv(root, full, *quiet, "--device_prefetch", "2"), log)
+        stopped = os.path.join(root, "stopped")
+        argv = trainer_argv(root, stopped, *quiet)
+        with open(log, "a") as f, contextlib.redirect_stdout(f):
+            cfg = cli.build_config(cli.make_parser().parse_args(argv))
+            stop_log = StopAt(os.path.join(root, "stopped.jsonl"), TRAINER_STOP)
+            tr = Trainer(cfg, logger=stop_log, device=DEVICE)
+            stop_log.trainer = tr
+            tr.train()
+            stop_log.close()
+        check(tr.preempted and tr.step == TRAINER_STOP,
+              f"[trainer] request_stop at step {TRAINER_STOP}: stopped at {tr.step}")
+        del tr
+        trainer_cli(argv + ["--requeue"], log)
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        torch.backends.cudnn.deterministic = False
+    full_train = [e for e in trainer_events(full) if e["event"] == "train"]
+    ref = {int(e["step"]): e["xent"] for e in full_train}
+    secs = [e["elapsed_min"] * 60 for e in full_train[1:]]
+    print(f"[trainer] the loop without validation or checkpoints (cuDNN deterministic, "
+          f"--device_prefetch 2): {len(secs) / sum(secs):.3f} steps/s over steps 2-4; "
+          "audio_s_per_s " + ", ".join(f"{e['audio_s_per_s']:.1f}" for e in full_train)
+          + "; loader_wait_s " + ", ".join(f"{e['loader_wait_s']:.3f}" for e in full_train)
+          + "; dispatch_s " + ", ".join(f"{e['dispatch_s']:.3f}" for e in full_train))
+    got = {int(e["step"]): e["xent"] for e in trainer_events(stopped) if e["event"] == "train"}
+    with open(os.path.join(root, "stopped.jsonl")) as f:
+        got.update({int(e["step"]): e["xent"] for e in map(json.loads, f)
+                    if e["event"] == "train"})
+    (resume,) = [e for e in trainer_events(stopped) if e["event"] == "resume"]
+    check(sorted(got) == sorted(ref) == [1, 2, 3, 4] and resume["step"] == TRAINER_STOP,
+          f"[trainer] steps: stopped and resumed {sorted(got)}, uninterrupted {sorted(ref)}")
+    err = abs(got[4] - ref[4]) / abs(ref[4])
+    check(err <= TOL_TRAINER_RESUME, f"[trainer] step 4 after a stop at step "
+          f"{TRAINER_STOP} and --requeue: loss {got[4]} vs uninterrupted {ref[4]}")
+    print(f"[trainer] stopped by request_stop at step {TRAINER_STOP} (mid-epoch 1), resumed "
+          f"with --requeue (in-epoch skip {resume['in_epoch_skip']:.0f}): losses "
+          + ", ".join(f"{got[k]:.6f}" for k in sorted(got)) + "; uninterrupted "
+          + ", ".join(f"{ref[k]:.6f}" for k in sorted(ref))
+          + f"; step 4 relative difference {err:.3g} (tol {TOL_TRAINER_RESUME}, cuDNN "
+          "deterministic; the uninterrupted run with --device_prefetch 2)")
+    return launches
 
 
 def phase_example_checkpoint():
@@ -1399,6 +1436,487 @@ def phase_conv_probe():
                 **{k: t[k] for k in ("plain_ms", "library_ms", "bound_ms", "bound_by")})
 
 
+def count_reset():
+    from doubleattentionspeakerverification_tpu_torch import ops
+
+    for k in ops.KERNELS:
+        k.launches = 0
+
+
+def counts():
+    from doubleattentionspeakerverification_tpu_torch import ops
+
+    return {k.name: k.launches for k in ops.KERNELS}
+
+
+def run_cli(main, argv, tag):
+    """A port CLI's ``main(argv)`` in process, with its stderr (the score
+    CLI's summary) captured; fails the phase unless it returns 0. Returns
+    the stderr text."""
+    import contextlib
+    import io
+
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = main(argv)
+    check(rc == 0, f"{tag} exited {rc}: {err.getvalue()[-2000:]}")
+    return err.getvalue()
+
+
+def summary_of(stderr):
+    """The score CLI's summary line (its last stderr line) as a dict."""
+    return dict(item.split("=", 1) for item in stderr.strip().splitlines()[-1].split())
+
+
+def score_lines(path):
+    """A score file -> [(utt1, utt2, score text, raw text or None, label)]."""
+    rows = []
+    with open(path) as f:
+        for line in f:
+            cols = line.split()
+            raw = next((c[4:] for c in cols[3:] if c.startswith("raw=")), None)
+            label = next((c for c in cols[3:] if not c.startswith("raw=")), "")
+            rows.append((cols[0], cols[1], cols[2], raw, label))
+    return rows
+
+
+def wav_batches(paths, cfg, batch):
+    """(utterances, bucketed batches, audio seconds) the extractor makes of
+    ``paths``: one B1 launch a batch."""
+    from doubleattentionspeakerverification_tpu_torch.data.wav import read_wav
+    from doubleattentionspeakerverification_tpu_torch.dsp.features import num_frames
+    from doubleattentionspeakerverification_tpu_torch.evaluation.embeddings import (
+        DEFAULT_BUCKETS, bucket_for,
+    )
+
+    per_bucket, seconds = {}, 0.0
+    for p in paths:
+        wave, sr = read_wav(p)
+        seconds += len(wave) / sr
+        b = bucket_for(num_frames(len(wave), cfg.features), DEFAULT_BUCKETS)
+        per_bucket[b] = per_bucket.get(b, 0) + 1
+    return len(paths), sum(-(-n // batch) for n in per_bucket.values()), seconds
+
+
+def input_driven_paper_model(cfg, train_dir):
+    """The paper's model from seed 0 with its weights made input-driven, as
+    a trained model's are: convolution and linear weights at He scale
+    (torch's default init shrinks a signal about 2.4x per ReLU layer, and
+    the random biases then dominate the embedding, so every cosine is about
+    1), no biases, and ``b2``'s running statistics set to those of fc2's
+    outputs over the training wavs (B2 and B1 on the card), as training
+    leaves them. Cosines then spread over [-1, 1], and the score, cohort and
+    PLDA checks below can see a wrong embedding."""
+    import glob
+
+    import torch
+
+    from doubleattentionspeakerverification_tpu_torch.evaluation.embeddings import (
+        EmbeddingExtractor, wav_feature_loader,
+    )
+    from doubleattentionspeakerverification_tpu_torch.models.classifier import SpeakerClassifier
+    from doubleattentionspeakerverification_tpu_torch.models.init import init_parameters
+
+    model = init_parameters(SpeakerClassifier(cfg.model), torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)):
+                m.weight.mul_(6 ** 0.5)
+                m.bias.zero_()
+    model = model.to(DEVICE).eval()
+    ids = sorted(os.path.basename(p)[:-4] for p in glob.glob(os.path.join(train_dir, "*.wav")))
+    ex = EmbeddingExtractor(model, wav_feature_loader(train_dir, cfg.features, "cmn",
+                                                      device=DEVICE))
+    emb = np.stack([ex.extract(ids)[u] for u in ids]).astype(np.float64)
+    e2 = emb * math.sqrt(1.0 + cfg.model.bn_eps)     # b2 at mean 0, var 1 -> fc2's output
+    with torch.no_grad():
+        model.b2.running_mean.copy_(torch.from_numpy(e2.mean(0)))
+        model.b2.running_var.copy_(torch.from_numpy(e2.var(0)))
+    return model.cpu()
+
+
+def phase_score_trials(root, smi):
+    """``cli/score_trials.py`` and ``cli/train_plda.py`` at paper width on
+    the ``[trainer]`` corpus (see the module docstring). Returns the fp
+    run's launches."""
+    import torch
+
+    from doubleattentionspeakerverification_tpu_torch.api import SpeakerEmbeddingModel
+    from doubleattentionspeakerverification_tpu_torch.cli import score_trials, train_plda
+    from doubleattentionspeakerverification_tpu_torch.data.manifest import load_trials
+    from doubleattentionspeakerverification_tpu_torch.data.wav import read_wav
+    from doubleattentionspeakerverification_tpu_torch.evaluation.eer import cosine_scores
+    from doubleattentionspeakerverification_tpu_torch.evaluation.embeddings import (
+        EmbeddingExtractor, load_embeddings, wav_feature_loader,
+    )
+    from doubleattentionspeakerverification_tpu_torch.evaluation.plda import PLDA
+    from doubleattentionspeakerverification_tpu_torch.evaluation.snorm import asnorm_trial_scores
+    from doubleattentionspeakerverification_tpu_torch.utils.checkpoint import save_checkpoint
+    from doubleattentionspeakerverification_tpu_torch.utils.weights import train_state_to_jax
+
+    cfg = paper_config()
+    work = os.path.join(root, "score")
+    os.makedirs(work)
+
+    def at(name):
+        return os.path.join(work, name)
+
+    valid, train = os.path.join(root, "valid"), os.path.join(root, "train")
+    t0 = time.perf_counter()
+    model = input_driven_paper_model(cfg, train)
+    ckpt = at("paper_0.npz")
+    save_checkpoint(ckpt, train_state_to_jax(model.state_dict(), {}, cfg.train.optimizer, 0,
+                                             cfg.train.learning_rate),
+                    {"config": cfg.to_dict(), "step": 0})
+    del model
+    print(f"[score_trials] paper-width checkpoint (seed 0, input-driven) written in "
+          f"{time.perf_counter() - t0:.1f} s: {os.path.getsize(ckpt) / 2**20:.0f} MiB")
+    base = ["--modelCheckpoint", ckpt, "--data_source", "wav", "--device", DEVICE]
+    labelled = ["--clients", os.path.join(root, "clients.ndx"),
+                "--impostors", os.path.join(root, "impostors.ndx")]
+    valid_ids = [f"v{j}" for j in range(TRAINER_VALID)]
+    n_valid, batches, valid_s = wav_batches(
+        [os.path.join(valid, u + ".wav") for u in valid_ids], cfg, 8)
+
+    # 1. float32, wav mode: B2 once an utterance, B1 once a bucketed batch
+    count_reset()
+    t0 = time.perf_counter()
+    err = run_cli(score_trials.main, base + [
+        "--data_dir", valid, *labelled, "--output", at("fp.txt"),
+        "--save_embeddings", at("valid_fp.npz")], "[score_trials] float32")
+    cli_s = time.perf_counter() - t0
+    fp_launches = counts()
+    check(fp_launches["logmel"] == n_valid and fp_launches["mha_pool"] == batches
+          and fp_launches["conv_int8"] == 0,
+          f"[score_trials] float32 launches {fp_launches}: want logmel {n_valid}, "
+          f"mha_pool {batches}, conv_int8 0")
+    summary = summary_of(err)
+    print(f"[score_trials] float32: {n_valid} utterances ({valid_s:.1f} s of audio) in "
+          f"{batches} bucketed batches, launches {json.dumps(fp_launches)}; summary {summary}; "
+          f"CLI wall {cli_s:.2f} s (checkpoint load included)")
+    # the same extraction timed alone (warm), through the CLI's own extractor
+    api = SpeakerEmbeddingModel.from_checkpoint(ckpt, device=DEVICE)
+    rates = []
+    for _ in range(2):
+        ex = EmbeddingExtractor(api.model, wav_feature_loader(valid, cfg.features, "cmn",
+                                                              device=DEVICE))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ex.extract(valid_ids)
+        torch.cuda.synchronize()
+        rates.append(time.perf_counter() - t0)
+    print(f"[score_trials] extraction (wav decode, B2, bucketed forwards, one read back), "
+          f"warm: {rates[-1]:.3f} s = {n_valid / rates[-1]:.1f} utterances/s, "
+          f"{valid_s / rates[-1]:.1f} audio-seconds/s (first pass {rates[0]:.3f} s); on {smi}")
+    # each score against embed_wave's cosine of the same two waves, one at a time
+    embs = {u: api.embed_wave(*read_wav(os.path.join(valid, u + ".wav"))) for u in valid_ids}
+    store = load_embeddings(at("valid_fp.npz"), expect_quantize="none")
+    rows = score_lines(at("fp.txt"))
+    want = cosine_scores(np.stack([embs[a] for a, *_ in rows]), np.stack([embs[b] for _, b, *_ in rows]))
+    err_score = float(np.abs(np.array([float(r[2]) for r in rows]) - want).max())
+    err_emb = max(float(np.abs(store[u] - embs[u]).max()) for u in valid_ids)
+    check(len(rows) == 24 and err_score <= TOL_SCORE_EMBED,
+          f"[score_trials] scores vs embed_wave's cosines: max|d| {err_score:.3g} over {len(rows)}")
+    print(f"[score_trials] {len(rows)} scores (cosines {want.min():.4f} .. {want.max():.4f}) vs "
+          f"embed_wave's cosines of the same waves: max|d| {err_score:.3g} (tol "
+          f"{TOL_SCORE_EMBED}, 6 decimals written); bucketed vs single embeddings max|d| "
+          f"{err_emb:.3g} (embedding values up to "
+          f"{max(float(np.abs(e).max()) for e in embs.values()):.3g})")
+    del api, ex
+
+    # 2. int8_static: calibrated on a wav, scales written; then loaded again
+    int8 = base + ["--data_dir", valid, *labelled, "--quantize", "int8_static",
+                   "--int8_scales", at("scales.npz")]
+    err = run_cli(score_trials.main, int8 + [
+        "--calibration_wav", os.path.join(valid, "v5.wav"), "--output", at("int8_a.txt")],
+        "[score_trials] int8_static")
+    check("int8_static calibration: static" in err, f"[score_trials] calibration: {err[-500:]}")
+    count_reset()
+    run_cli(score_trials.main, int8 + ["--output", at("int8_b.txt")], "[score_trials] int8_static")
+    q_launches = counts()
+    check(q_launches["conv_int8"] == 7 * batches and q_launches["mha_pool"] == batches
+          and q_launches["logmel"] == n_valid,
+          f"[score_trials] int8_static launches {q_launches}: want conv_int8 {7 * batches}")
+    with open(at("int8_a.txt")) as f, open(at("int8_b.txt")) as g:
+        check(f.read() == g.read(), "[score_trials] int8_static: the run that loads the scales "
+              "file writes other scores")
+    drift = float(np.abs(np.array([float(r[2]) for r in score_lines(at("int8_b.txt"))])
+                         - np.array([float(r[2]) for r in rows])).max())
+    print(f"[score_trials] int8_static: launches {json.dumps(q_launches)} (7 B3 a forward, "
+          f"{batches} forwards); the run loading the scales wrote the same bytes; scores vs "
+          f"float32 max|d| {drift:.3g}")
+
+    # 3. the training utterances' store, for the cohort and PLDA
+    manifest = os.path.join(root, "labels.ndx")
+    with open(manifest) as f:
+        train_ids = [ln.split()[0] for ln in f if ln.strip()]
+    with open(at("train_pairs.ndx"), "w") as f:
+        f.writelines(f"{a} {b}\n" for a, b in zip(train_ids, train_ids[1:] + train_ids[:1]))
+    n_train, train_batches, train_s = wav_batches(
+        [os.path.join(train, u + ".wav") for u in train_ids], cfg, 8)
+    count_reset()
+    t0 = time.perf_counter()
+    run_cli(score_trials.main, base + [
+        "--data_dir", train, "--trials", at("train_pairs.ndx"), "--output", at("train.txt"),
+        "--save_embeddings", at("train_fp.npz")], "[score_trials] training store")
+    wall = time.perf_counter() - t0
+    t_launches = counts()
+    check(t_launches["logmel"] == n_train and t_launches["mha_pool"] == train_batches,
+          f"[score_trials] training store launches {t_launches}")
+    print(f"[score_trials] training store: {n_train} utterances ({train_s:.1f} s of audio), "
+          f"{train_batches} batches, CLI wall {wall:.2f} s; launches {json.dumps(t_launches)}")
+
+    # 4. AS-Norm against the training store: the written lines equal a host
+    #    recomputation from the stores, formatted as the CLI writes them
+    # (the CLI scores the client and the impostor list each on its own)
+    lists = [load_trials(os.path.join(root, f)) for f in ("clients.ndx", "impostors.ndx")]
+    trials = lists[0] + lists[1]
+    cohort = np.stack(list(load_embeddings(at("train_fp.npz")).values()))
+
+    def per_list(fn):
+        return np.concatenate([fn(t) for t in lists])
+
+    raw = per_list(lambda t: cosine_scores(np.stack([store[a] for a, _ in t]),
+                                           np.stack([store[b] for _, b in t])))
+    for k in SCORE_TOPK:
+        count_reset()
+        err = run_cli(score_trials.main, base + [
+            "--data_dir", valid, *labelled, "--load_embeddings", at("valid_fp.npz"),
+            "--cohort_embeddings", at("train_fp.npz"), "--snorm_topk", str(k),
+            "--output", at(f"snorm{k}.txt")], f"[score_trials] --snorm_topk {k}")
+        normed = per_list(lambda t: asnorm_trial_scores(t, store, cohort, k))
+        got = score_lines(at(f"snorm{k}.txt"))
+        want = [(a, b, f"{n:.6f}", f"{r:.6f}") for (a, b), n, r in zip(trials, normed, raw)]
+        check([r[:4] for r in got] == want and sum(counts().values()) == 0,
+              f"[score_trials] --snorm_topk {k}: lines differ from the host recomputation")
+        s = summary_of(err)
+        check(s["cohort_size"] == str(len(cohort)), f"[score_trials] cohort size {s}")
+        print(f"[score_trials] AS-Norm top-{k} over {len(cohort)} cohort rows: {len(got)} lines "
+              f"equal the host recomputation from the stores as written (6 decimals); "
+              f"eer_exact_snorm {s['eer_exact_snorm']}, min_dcf_snorm {s['min_dcf_snorm']} "
+              f"(raw: eer {s['eer']}, eer_exact {s['eer_exact']})")
+
+    # 5. PLDA trained on the training store, then scoring with it
+    t0 = time.perf_counter()
+    err = run_cli(train_plda.main, ["--embeddings", at("train_fp.npz"), "--labels", manifest,
+                                    "--output", at("plda.npz")], "[train_plda]")
+    fit_s = time.perf_counter() - t0
+    err_s = run_cli(score_trials.main, base + [
+        "--data_dir", valid, *labelled, "--load_embeddings", at("valid_fp.npz"),
+        "--plda", at("plda.npz"), "--output", at("plda.txt")], "[score_trials] --plda")
+    plda = PLDA.load(at("plda.npz"))
+    llr = per_list(lambda t: plda.score_trials(t, store))
+    got = score_lines(at("plda.txt"))
+    check(np.all(np.isfinite(llr)) and all(math.isfinite(float(r[2])) for r in got)
+          and [r[:4] for r in got] == [(a, b, f"{n:.6f}", f"{r:.6f}")
+                                       for (a, b), n, r in zip(trials, llr, raw)],
+          "[score_trials] --plda: LLRs not finite or not PLDA.score_trials' on the store")
+    s = summary_of(err_s)
+    print(f"[train_plda] {err.strip()} in {fit_s:.2f} s; --plda: {len(got)} finite LLRs "
+          f"({llr.min():.3f} .. {llr.max():.3f}) equal PLDA.load(...).score_trials on the store "
+          f"as written; eer_exact_plda {s['eer_exact_plda']}, min_dcf_plda {s['min_dcf_plda']}")
+    return fp_launches, dict(utt_per_s=n_valid / rates[-1], audio_s_per_s=valid_s / rates[-1])
+
+
+def example_corpus(root):
+    """The example corpus of ``examples/example_corpus.py`` (``make_wavs``
+    and ``write_index_files`` at their defaults: 4 speakers x 5 FM harmonic
+    stacks of 1.5 s, seed 0), written with the port's ``data/wav.py``, which
+    encodes as the JAX package's writer does: the wavs the committed golden
+    scores were made from."""
+    from doubleattentionspeakerverification_tpu_torch.data.wav import encode_wav
+
+    rng = np.random.default_rng(0)
+    wav_dir = os.path.join(root, "wavs")
+    os.makedirs(wav_dir)
+    t = np.arange(int(1.5 * 16000)) / 16000
+    names, labels = [], []
+    for spk in range(4):
+        f0, fm_rate, fm_depth = 150 + 110 * spk, 2.0 + 1.5 * spk, 60.0 + 25.0 * spk
+        for i in range(5):
+            phase = rng.uniform(0, 2 * np.pi)
+            inst = f0 * t + (fm_depth / (2 * np.pi * fm_rate)) * np.sin(
+                2 * np.pi * fm_rate * t + phase)
+            y = (0.3 * np.sin(2 * np.pi * inst) + 0.15 * np.sin(2 * np.pi * 2.0 * inst + 0.3)
+                 + 0.03 * rng.standard_normal(len(t)))
+            name = f"spk{spk}_utt{i}"
+            with open(os.path.join(wav_dir, name + ".wav"), "wb") as f:
+                f.write(encode_wav(y, 16000))
+            names.append(name)
+            labels.append(spk)
+    by = {s: [n for n, l in zip(names, labels) if l == s] for s in range(4)}
+    with open(os.path.join(root, "clients.ndx"), "w") as f:
+        for s in range(4):
+            f.write(f"{by[s][0]} {by[s][1]}\n{by[s][2]} {by[s][3]}\n")
+    with open(os.path.join(root, "impostors.ndx"), "w") as f:
+        f.writelines(f"{by[a][0]} {by[b][0]}\n" for a in range(4) for b in range(4) if a != b)
+    return wav_dir
+
+
+def phase_score_trials_example(root):
+    """The score CLI on ``example_model.npz`` over the example corpus, on the
+    card and on the CPU: the two score files within TOL_SCORE_DEVICES, both
+    within TOL_EMBED of the committed golden scores, EER 8.3334."""
+    from doubleattentionspeakerverification_tpu_torch.cli import score_trials
+    from doubleattentionspeakerverification_tpu_torch.data.manifest import load_trials
+
+    work = os.path.join(root, "example")
+    os.makedirs(work)
+    wav_dir = example_corpus(work)
+    ckpt = os.path.join(HERE, "examples", "pretrained", "example_model.npz")
+    with open(os.path.join(HERE, "examples", "pretrained", "golden_scores.json")) as f:
+        golden = json.load(f)
+    golden = np.array(golden["clients"] + golden["impostors"])
+    scores, eers, launches = {}, {}, {}
+    for dev in (DEVICE, "cpu"):
+        count_reset()
+        err = run_cli(score_trials.main, [
+            "--modelCheckpoint", ckpt, "--data_dir", wav_dir, "--data_source", "wav",
+            "--clients", os.path.join(work, "clients.ndx"),
+            "--impostors", os.path.join(work, "impostors.ndx"),
+            "--output", os.path.join(work, f"{dev}.txt"), "--device", dev],
+            f"[score_trials example] {dev}")
+        launches[dev] = counts()
+        rows = score_lines(os.path.join(work, f"{dev}.txt"))
+        scores[dev] = np.array([float(r[2]) for r in rows])
+        eers[dev] = summary_of(err)["eer"]
+        check([r[4] for r in rows] == ["target"] * 8 + ["nontarget"] * 12,
+              f"[score_trials example] {dev}: labels {[r[4] for r in rows]}")
+    n_utts = len({u for name in ("clients.ndx", "impostors.ndx")
+                  for pair in load_trials(os.path.join(work, name)) for u in pair})
+    check(launches[DEVICE]["logmel"] == n_utts and launches[DEVICE]["mha_pool"] > 0
+          and sum(launches["cpu"].values()) == 0,
+          f"[score_trials example] launches {launches}: want logmel {n_utts}")
+    d_dev = float(np.abs(scores[DEVICE] - scores["cpu"]).max())
+    d_gold = max(float(np.abs(s - golden).max()) for s in scores.values())
+    check(d_dev <= TOL_SCORE_DEVICES and d_gold <= TOL_EMBED
+          and eers[DEVICE] == eers["cpu"] == "8.3334",
+          f"[score_trials example] card vs CPU {d_dev:.3g}, vs golden {d_gold:.3g}, EER {eers}")
+    print(f"[score_trials example] example_model.npz, 20 trials: card vs CPU scores max|d| "
+          f"{d_dev:.3g} (tol {TOL_SCORE_DEVICES}); both vs golden_scores.json max|d| "
+          f"{d_gold:.3g} (tol {TOL_EMBED}); EER {eers[DEVICE]} on both; card launches "
+          f"{json.dumps(launches[DEVICE])} ({n_utts} utterances in trials), CPU none")
+    return wav_dir
+
+
+def phase_extract_features(root, smi):
+    """``cli/extract_features.py`` over the 16 validation wavs on the card:
+    B2 once a file; each pickle within TOL_LOGMEL of B2's plain version on
+    the CPU."""
+    import contextlib
+    import io
+    import pickle
+
+    from doubleattentionspeakerverification_tpu_torch.cli import extract_features
+    from doubleattentionspeakerverification_tpu_torch.config import FeatureConfig
+    from doubleattentionspeakerverification_tpu_torch.data.wav import read_wav
+    from doubleattentionspeakerverification_tpu_torch.dsp.features import make_device_logmel
+
+    valid = os.path.join(root, "valid")
+    paths = [os.path.join(valid, f"v{j}.wav") for j in range(TRAINER_VALID)]
+    lst = os.path.join(root, "valid_files.lst")
+    with open(lst, "w") as f:
+        f.writelines(p + "\n" for p in paths)
+    count_reset()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        rc = extract_features.main(["-i", lst, "--device", DEVICE])
+    wall = time.perf_counter() - t0
+    launches = counts()
+    check(rc == 0 and out.getvalue().split() == paths, f"[extract_features] exited {rc}")
+    check(launches["logmel"] == len(paths) and launches["mha_pool"] == 0,
+          f"[extract_features] launches {launches}: want logmel {len(paths)}")
+    plain = make_device_logmel(FeatureConfig(), "cpu")
+    worst, seconds = 0.0, 0.0
+    for p in paths:
+        wave, sr = read_wav(p)
+        seconds += len(wave) / sr
+        with open(p[:-4] + ".pickle", "rb") as f:
+            got = pickle.load(f)
+        want = plain(wave.astype(np.float32)).T
+        check(got.shape == want.shape and got.shape[0] == 80, f"[extract_features] {p}: "
+              f"shape {got.shape} vs {want.shape}")
+        worst = max(worst, float(np.abs(got - want).max()))
+    check(worst <= TOL_LOGMEL, f"[extract_features] pickles vs B2's plain version: {worst:.3g}")
+    print(f"[extract_features] {len(paths)} wavs ({seconds:.1f} s of audio): launches "
+          f"{json.dumps(launches)}; pickles (80, T) vs B2's plain version on the CPU max|d| "
+          f"{worst:.3g} (tol {TOL_LOGMEL}); wall {wall:.3f} s (decode, B2, copy back, pickle) "
+          f"= {len(paths) / wall:.1f} files/s, {seconds / wall:.1f} audio-seconds/s; on {smi}")
+
+
+def phase_alignments(example_wavs):
+    """``cli/alignments.py`` on the example checkpoint: the card's weights
+    against the CPU's within TOL_ALIGN; each head's time weights, and the
+    head weights, sum to 1."""
+    from doubleattentionspeakerverification_tpu_torch.api import SpeakerEmbeddingModel
+    from doubleattentionspeakerverification_tpu_torch.cli import alignments
+
+    ckpt = os.path.join(HERE, "examples", "pretrained", "example_model.npz")
+    cpu = SpeakerEmbeddingModel.from_checkpoint(ckpt, device="cpu")
+    worst, shapes = 0.0, []
+    for name in ("spk0_utt0", "spk2_utt3", "spk3_utt4"):
+        wav = os.path.join(example_wavs, name + ".wav")
+        out = os.path.join(example_wavs, name + "_align.npz")
+        count_reset()
+        run_cli(alignments.main, ["--audioPath", wav, "--modelCheckpoint", ckpt,
+                                  "--output", out, "--device", DEVICE], "[alignments]")
+        check(counts()["logmel"] == 1, f"[alignments] launches {counts()}")
+        want_t, want_h = alignments.alignments_for_wav(wav, cpu)
+        with np.load(out) as z:
+            got_t, got_h = z["time_alignment"], z["head_alignment"]
+        check(got_t.shape == want_t.shape and got_h.shape == want_h.shape,
+              f"[alignments] shapes {got_t.shape} {got_h.shape}")
+        worst = max(worst, float(np.abs(got_t - want_t).max()), float(np.abs(got_h - want_h).max()))
+        sums = np.concatenate([got_t.sum(axis=0) - 1.0, [got_h.sum() - 1.0]])
+        check(float(np.abs(sums).max()) <= 1e-5, f"[alignments] weights do not sum to 1: {sums}")
+        shapes.append(got_t.shape)
+    check(worst <= TOL_ALIGN, f"[alignments] card vs CPU max|d| {worst:.3g}")
+    print(f"[alignments] example_model.npz (DoubleMHA, 4 heads), 3 wavs: time weights "
+          f"{shapes} and head weights (4,), card vs CPU max|d| {worst:.3g} (tol {TOL_ALIGN}); "
+          f"each head's weights sum to 1")
+
+
+def phase_export(root):
+    """``cli/export_checkpoint.py`` on the ``[trainer]`` run's newest
+    checkpoint: the ``.chkpt`` read back by ``utils/torch_import.py`` embeds
+    on the card as the ``.npz`` does (TOL_EXPORT)."""
+    import torch
+
+    from doubleattentionspeakerverification_tpu_torch.api import SpeakerEmbeddingModel
+    from doubleattentionspeakerverification_tpu_torch.cli import export_checkpoint
+    from doubleattentionspeakerverification_tpu_torch.utils.checkpoint import (
+        latest_checkpoint, load_checkpoint,
+    )
+    from doubleattentionspeakerverification_tpu_torch.utils.torch_import import (
+        load_torch_checkpoint,
+    )
+
+    npz = latest_checkpoint(os.path.join(root, "run"))
+    out = os.path.join(root, "exported.chkpt")
+    t0 = time.perf_counter()
+    run_cli(export_checkpoint.main, ["--checkpoint", npz, "--out", out], "[export]")
+    wall = time.perf_counter() - t0
+    flat, meta = load_checkpoint(npz)
+    state, cfg, epoch, step = load_torch_checkpoint(out)
+    ckpt = torch.load(out, map_location="cpu", weights_only=False)
+    check(step == int(flat["step"]) and cfg.model.num_spkrs == TRAINER_SPEAKERS
+          and len(ckpt["optimizer"]["state"]) == 27,
+          f"[export] step {step} vs {int(flat['step'])}, num_spkrs {cfg.model.num_spkrs}, "
+          f"{len(ckpt['optimizer']['state'])} optimizer entries")
+    models = {k: SpeakerEmbeddingModel.from_checkpoint(p, device=DEVICE)
+              for k, p in (("npz", npz), ("chkpt", out))}
+    rng = np.random.default_rng(9)
+    waves = [seeded_speech(rng, s) for s in (2.0, 5.5, 9.0)]
+    worst = max(float(np.abs(models["chkpt"].embed_wave(w) - models["npz"].embed_wave(w)).max())
+                for w in waves)
+    check(worst <= TOL_EXPORT, f"[export] .chkpt vs .npz embeddings on the card: {worst:.3g}")
+    print(f"[export] {os.path.basename(npz)} (step {step}, epoch {epoch}) -> .chkpt "
+          f"({os.path.getsize(out) / 2**20:.0f} MiB, {len(ckpt['model'])} tensors, Adam state "
+          f"for {len(ckpt['optimizer']['state'])} parameters) in {wall:.2f} s; read back by "
+          f"torch_import, embeddings of 3 waves on the card vs the .npz's max|d| {worst:.3g} "
+          f"(tol {TOL_EXPORT})")
+
+
 def main() -> int:
     import torch
 
@@ -1441,7 +1959,16 @@ def main() -> int:
         print(f"[forward] B=8 x 10 s: float32 {fp_ms:.3f} ms, int8_static {q_ms:.3f} ms "
               f"({fp_ms / q_ms:.2f}x) device time on {smi}")
         train_launches = phase_train()
-        phase_trainer(smi)
+        root = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+        try:
+            phase_trainer(root, smi)
+            phase_score_trials(root, smi)
+            example_wavs = phase_score_trials_example(root)
+            phase_extract_features(root, smi)
+            phase_alignments(example_wavs)
+            phase_export(root)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
         print(f"[B1 backward] T'={POOL_MAIN}: " + json.dumps(dict(
             pool_bwd_stats, launches_per_train_step=train_launches["mha_pool"] // TRAIN_STEPS)))
     except PhaseError as e:

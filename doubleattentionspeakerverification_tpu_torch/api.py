@@ -38,7 +38,7 @@ from .utils.weights import params_from_jax
 ArrayLike = Union[np.ndarray, torch.Tensor]
 
 
-def _empty_model(cfg: ExperimentConfig) -> SpeakerClassifier:
+def empty_model(cfg: ExperimentConfig) -> SpeakerClassifier:
     """The module with uninitialized storage (no wasted default init)."""
     with torch.device("meta"):
         model = SpeakerClassifier(cfg.model)
@@ -48,7 +48,7 @@ def _empty_model(cfg: ExperimentConfig) -> SpeakerClassifier:
 def _model_from_state(state, cfg: ExperimentConfig) -> SpeakerClassifier:
     """The module holding ``state``, a state dict keyed by the port's names
     that may carry more (``utils/weights.py``, ``utils/torch_import.py``)."""
-    model = _empty_model(cfg)
+    model = empty_model(cfg)
     model.load_state_dict({k: state[k] for k in model.state_dict()})
     return model
 
@@ -78,6 +78,12 @@ class SpeakerEmbeddingModel:
                 self.model, cfg.model,
                 scheme="static" if quantize == "int8_static" else "dynamic",
                 scales_path=quantize_scales_path)
+
+    @property
+    def embed_fn(self):
+        """``(x, lengths) -> (B, emb)`` as this model embeds: the module
+        itself, or its int8 path under ``quantize``."""
+        return self._embed
 
     # --------------------------------------------------------- calibration
     @torch.inference_mode()
@@ -134,7 +140,7 @@ class SpeakerEmbeddingModel:
     def from_random_init(cls, cfg: ExperimentConfig, seed: int = 0, device="cuda",
                          quantize: str = "none") -> "SpeakerEmbeddingModel":
         generator = torch.Generator().manual_seed(seed)
-        return cls(init_parameters(_empty_model(cfg), generator), cfg, device=device,
+        return cls(init_parameters(empty_model(cfg), generator), cfg, device=device,
                    quantize=quantize)
 
     # ------------------------------------------------------------- embed

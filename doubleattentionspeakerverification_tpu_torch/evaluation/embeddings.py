@@ -126,7 +126,9 @@ def bucket_for(length: int, buckets: Sequence[int]) -> int:
 class EmbeddingExtractor:
     """Extract-once cache of scoring embeddings from ``model`` (a
     ``SpeakerClassifier``; its eval-mode forward, the model's mode restored
-    after).
+    after), or from ``embed_fn(x, lengths) -> (B, emb)`` where one is given
+    (the int8 encoder, ``models/quantized.py:make_int8_embed_fn``), run with
+    ``model`` in eval mode and on its device.
 
     Features load on a host thread pool; every bucketed batch of
     ``batch_size`` rows is launched before any result is read back (CUDA
@@ -141,8 +143,10 @@ class EmbeddingExtractor:
                  batch_size: int = 8, buckets: Sequence[int] = DEFAULT_BUCKETS,
                  num_workers: int = 4, long_audio: str = "chunk",
                  max_frames: Optional[int] = None,
-                 stream: Optional["torch.cuda.Stream"] = None):
+                 stream: Optional["torch.cuda.Stream"] = None,
+                 embed_fn: Optional[Callable] = None):
         self.model = model
+        self._embed = model if embed_fn is None else embed_fn
         self.device = next(model.parameters()).device
         self.load = feature_loader
         self.batch_size = batch_size
@@ -178,7 +182,7 @@ class EmbeddingExtractor:
             for keys, x, lengths in batches:
                 xt = torch.from_numpy(x).to(self.device, non_blocking=True)
                 lt = torch.from_numpy(lengths.astype(np.int64)).to(self.device, non_blocking=True)
-                pending.append((keys, self.model(xt, lt)))
+                pending.append((keys, self._embed(xt, lt)))
         finally:
             self.model.train(was_training)
         return [(keys, emb.cpu().numpy()) for keys, emb in pending]

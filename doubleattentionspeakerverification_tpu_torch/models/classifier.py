@@ -97,3 +97,18 @@ class SpeakerClassifier(nn.Module):
         margin logits), (B, num_spkrs) each."""
         return self.amsoftmax(self.classifier_features(x, lengths, keep, generator), labels,
                               step, self.cfg)
+
+
+@torch.no_grad()
+def get_alignments(model: SpeakerClassifier, x: torch.Tensor,
+                   lengths: Optional[torch.Tensor] = None):
+    """The pooling's attention weights (JAX ``models/classifier.py:150``;
+    reference ``DoubleMHA.getAlignments`` / ``MultiHeadAttention.getAlignments``,
+    ``poolings.py:95-101,119-123``): the time weights (B, T', H), or (B, T')
+    for single-head ``Attention``, and for DoubleMHA also the head weights
+    (B, H). Always the plain masked softmax: kernel B1 returns the contexts,
+    not the weights."""
+    alignments = getattr(model.pooling, "alignments", None)
+    if alignments is None:
+        raise ValueError(f"no alignments for pooling_method {model.cfg.pooling_method!r}")
+    return alignments(*model.vgg(x, lengths))

@@ -29,7 +29,7 @@ from torch import nn
 
 from ..config import ModelConfig
 from ..ops.masked_ops import NEG_INF, length_mask, masked_softmax
-from ..ops.mha_pool import mha_pool
+from ..ops.mha_pool import mha_pool, mha_pool_alignments
 
 
 class AttentionPooling(nn.Module):
@@ -39,10 +39,13 @@ class AttentionPooling(nn.Module):
 
     def forward(self, ht: torch.Tensor, lengths: Optional[torch.Tensor]) -> torch.Tensor:
         """(B, T, D) -> (B, D)."""
-        scores = (ht @ self.att)[..., 0]                                   # (B, T)
+        return torch.einsum("bt,btd->bd", self.alignments(ht, lengths), ht)
+
+    def alignments(self, ht: torch.Tensor, lengths: Optional[torch.Tensor]) -> torch.Tensor:
+        """The weights over time (B, T)."""
+        scores = (ht @ self.att)[..., 0]
         mask = None if lengths is None else length_mask(lengths, ht.shape[1])
-        w = masked_softmax(scores, mask, dim=-1)
-        return torch.einsum("bt,btd->bd", w, ht)
+        return masked_softmax(scores, mask, dim=-1)
 
 
 class MHAPooling(nn.Module):
@@ -57,6 +60,10 @@ class MHAPooling(nn.Module):
     def forward(self, ht: torch.Tensor, lengths: Optional[torch.Tensor]) -> torch.Tensor:
         """(B, T, D) -> per-head contexts (B, H, d_h)."""
         return mha_pool(ht, self.query, lengths, self.heads, self.dk_is_heads)
+
+    def alignments(self, ht: torch.Tensor, lengths: Optional[torch.Tensor]) -> torch.Tensor:
+        """Each head's weights over time (B, T, H), from the plain version."""
+        return mha_pool_alignments(ht, self.query, lengths, self.heads, self.dk_is_heads)
 
 
 def draw_head_keep(batch: int, heads: int, mask_prob: float,
@@ -91,6 +98,10 @@ class HeadAttention(nn.Module):
         w = torch.softmax(scores, dim=-1)
         return torch.einsum("bh,bhd->bd", w, heads_ctx)
 
+    def alignments(self, heads_ctx: torch.Tensor) -> torch.Tensor:
+        """The weights over heads (B, H), as in eval mode (no head dropout)."""
+        return torch.softmax((heads_ctx @ self.att)[..., 0], dim=-1)
+
 
 class DoubleMHAPooling(nn.Module):
     def __init__(self, encoder_size: int, heads: int, dk_is_heads: bool = True,
@@ -103,6 +114,15 @@ class DoubleMHAPooling(nn.Module):
                 keep: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         return self.head_att(self.mha(ht, lengths), keep, generator)
+
+    def alignments(self, ht: torch.Tensor, lengths: Optional[torch.Tensor]):
+        """(time weights (B, T, H), head weights (B, H)); the head contexts
+        pooled with the plain version's weights."""
+        w = self.mha.alignments(ht, lengths)
+        b, t, _ = ht.shape
+        heads_ctx = torch.einsum("bth,bthd->bhd", w,
+                                 ht.reshape(b, t, w.shape[-1], -1).to(torch.float32))
+        return w, self.head_att.alignments(heads_ctx)
 
 
 class StatisticalPooling(nn.Module):

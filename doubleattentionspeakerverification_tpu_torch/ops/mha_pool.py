@@ -93,14 +93,18 @@ def launch_plan(b: int, t: int, heads: int, d_h: int, elt: int, ht_ptr: int = 0,
                 smem=smem, blocks=r * -(-heads // g) * b)
 
 
+def mha_pool_weights(ht4: torch.Tensor, q_t: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """The masked softmax weights over time (B, T, H) of float32 ht4
+    (B, T, H, d_h) and q_t (H, d_h) with the scale folded in."""
+    scores = torch.einsum("bthd,hd->bth", ht4, q_t)
+    return masked_softmax(scores, length_mask(lengths, ht4.shape[1])[..., None], dim=1)
+
+
 def mha_pool_plain(ht4: torch.Tensor, q_t: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """ht4 (B, T, H, d_h), q_t (H, d_h) with the scale folded in, lengths
     (B,) -> contexts (B, H, d_h) float32."""
     ht4 = ht4.to(torch.float32)
-    t = ht4.shape[1]
-    scores = torch.einsum("bthd,hd->bth", ht4, q_t)
-    mask = length_mask(lengths, t)[..., None]
-    w = masked_softmax(scores, mask, dim=1)
+    w = mha_pool_weights(ht4, q_t, lengths)
     return torch.einsum("bth,bthd->bhd", w, ht4)
 
 
@@ -176,8 +180,7 @@ def mha_pool_backward(ht4: torch.Tensor, q_t: torch.Tensor, lengths: torch.Tenso
     d_ht = w * g + ds * q_t, d_q_t = sum_{b,t} ds * ht."""
     x = ht4.to(torch.float32)
     g = g.to(torch.float32)
-    scores = torch.einsum("bthd,hd->bth", x, q_t)
-    w = masked_softmax(scores, length_mask(lengths, x.shape[1])[..., None], dim=1)
+    w = mha_pool_weights(x, q_t, lengths)
     gv = torch.einsum("bthd,bhd->bth", x, g)
     ds = w * (gv - (w * gv).sum(dim=1, keepdim=True))
     d_ht = w[..., None] * g[:, None] + ds[..., None] * q_t
@@ -203,6 +206,20 @@ class MhaPoolFunction(torch.autograd.Function):
                 d_q if ctx.needs_input_grad[1] else None, None)
 
 
+def _operands(ht: torch.Tensor, query: torch.Tensor, lengths: Optional[torch.Tensor],
+              heads: int, dk_is_heads: bool):
+    """(ht4, q_t, int32 lengths) of ht (B, T, D) and query (d_h, H): the
+    score scale, 1/sqrt(heads) under the reference's ``d_k = heads`` quirk,
+    else 1/sqrt(d_h), folded into the query."""
+    b, t, d = ht.shape
+    d_h = d // heads
+    scale = 1.0 / math.sqrt(float(heads if dk_is_heads else d_h))
+    q_t = (query.t() * scale).to(torch.float32).contiguous()
+    if lengths is None:
+        lengths = torch.full((b,), t, dtype=torch.int32, device=ht.device)
+    return ht.reshape(b, t, heads, d_h), q_t, lengths.to(torch.int32)
+
+
 def mha_pool(
     ht: torch.Tensor,
     query: torch.Tensor,
@@ -211,14 +228,15 @@ def mha_pool(
     dk_is_heads: bool = True,
 ) -> torch.Tensor:
     """Counterpart of ``mha_pool_pallas``: ht (B, T, D), query (d_h, H) as in
-    the reference -> (B, H, d_h). The score scale is 1/sqrt(heads) under the
-    reference's ``d_k = heads`` quirk, else 1/sqrt(d_h); it is folded into
-    the query, and autograd carries it and the transpose back to ``query``."""
-    b, t, d = ht.shape
-    d_h = d // heads
-    scale = 1.0 / math.sqrt(float(heads if dk_is_heads else d_h))
-    ht4 = ht.reshape(b, t, heads, d_h)
-    q_t = (query.t() * scale).to(torch.float32).contiguous()
-    if lengths is None:
-        lengths = torch.full((b,), t, dtype=torch.int32, device=ht.device)
-    return MhaPoolFunction.apply(ht4, q_t, lengths.to(torch.int32))
+    the reference -> (B, H, d_h). Autograd carries the folded scale and the
+    transpose back to ``query``."""
+    return MhaPoolFunction.apply(*_operands(ht, query, lengths, heads, dk_is_heads))
+
+
+def mha_pool_alignments(ht: torch.Tensor, query: torch.Tensor, lengths: Optional[torch.Tensor],
+                        heads: int, dk_is_heads: bool = True) -> torch.Tensor:
+    """The time weights (B, T, H) that :func:`mha_pool` pools with, from the
+    plain version on any device: B1 returns the contexts, not the weights
+    (the JAX package takes its XLA path here, ``models/classifier.py:150``)."""
+    ht4, q_t, lengths = _operands(ht, query, lengths, heads, dk_is_heads)
+    return mha_pool_weights(ht4.to(torch.float32), q_t, lengths)

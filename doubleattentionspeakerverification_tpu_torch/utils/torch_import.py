@@ -20,7 +20,7 @@ from ..config import ExperimentConfig, ModelConfig, TrainConfig
 
 # reference name prefix -> the port's, longest first; a key that matches none
 # (b1.*, b3.*) is skipped
-_RENAMES = (
+RENAMES = (
     ("poolingLayer.utteranceAttention.", "pooling.mha."),
     ("poolingLayer.headsAttention.", "pooling.head_att."),
     ("poolingLayer.", "pooling."),
@@ -39,7 +39,7 @@ def import_state_dict(state_dict: Dict[str, torch.Tensor]) -> Dict[str, torch.Te
     int64, 0 where the file has none)."""
     out: Dict[str, torch.Tensor] = {}
     for key, value in state_dict.items():
-        for old, new in _RENAMES:
+        for old, new in RENAMES:
             if key.startswith(old):
                 t = torch.as_tensor(value).detach().cpu()
                 out[new + key[len(old):]] = t.to(torch.int64 if key.endswith(
