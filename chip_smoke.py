@@ -44,6 +44,27 @@ batches ahead with ``--device_prefetch 2``); it prints the loop's
 steps/s, audio seconds per second, loader wait, dispatch, validation and
 checkpoint times, the peak memory and the isolated step's time.
 
+``[distributed]`` trains across processes (``parallel/``), each started by
+``tools/multihost_check.py`` from this script (``chip_smoke:dist_*``).
+First NCCL at world size 1: one step of a small model through the port's
+multi-process step, whose gradient all-reduce runs on the communicator,
+against the same step without it. Then two ranks sharing the card over
+gloo take the paper recipe's step ([train]'s batch, seed-0 weights): once
+data-parallel (32 rows a rank), once with the AM-Softmax W split over the
+two ranks (2997 columns a rank); each is held to one process's step on the
+card (the loss to [train]'s card-vs-CPU tolerance, the gradients by
+[train]'s measure, the Adam update by its L2 distance), the two ranks'
+parameters equal bit for bit after it; each rank launches B1 and B2
+(counts from 0) and prints its median step time (CUDA events) and peak
+memory. Last ``cli/train.py --distributed --model_parallel 2
+--checkpoint_backend orbax`` with SGD on the [trainer] corpus for 4 steps:
+its losses within 1e-3 and its sharded EERs within 0.51 of one process's
+run (JAX scenario A's tolerances), each rank embedding half the validation
+utterances, the embedding cache each validation gathered equal on both
+ranks and held to one process's run's, utterance by utterance; and one
+process resuming from the ranks' step-2 ``.dcp`` continues that run to
+1e-3 (scenario T).
+
 On that corpus, ``[score_trials]`` drives ``cli/score_trials.py``'s and
 ``cli/train_plda.py``'s ``main`` at paper width (seed 0, written as a
 JAX-format ``.npz``; its weights made input-driven, as a trained model's
@@ -71,6 +92,7 @@ Imports nothing of JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -121,6 +143,29 @@ TRAINER_VALID, TRAINER_VALID_SECONDS = 16, (2.0, 12.0)
 TRAINER_STOP = 3
 TRAINER_BENCH = 4
 TOL_TRAINER_RESUME = 1e-5
+# [distributed]: two ranks share the card over gloo. The step at paper width
+# is held to one process's as [train] holds card vs CPU; the CLI runs' losses
+# and EERs to JAX scenario A's cross-topology tolerances
+# (tools/multihost_trainer_check.py:292), its 2 -> 1 resume to scenario T's
+DIST_STEPS = 3           # timed steps a rank after the compared step 1
+TOL_DIST_LOSS = 1e-3
+TOL_DIST_EER = 0.51
+# The step's update (the parameters after it less those before) against one
+# process's, by L2 distance over the norm of one process's update. Adam's
+# first step moves each element by about lr times the sign of its gradient,
+# so an element whose gradient lies below the runs' rounding disagreement
+# may flip, adding 2 / sqrt(n) for a tensor of n elements; a step that did
+# not update, or updated at another scale, lies at 1. fc2.bias is exempt:
+# b2 takes the batch mean out of fc2's outputs, so its gradient is what
+# rounding leaves of a cancellation, and Adam turns that into an update of
+# full size in any direction (its gradient is held by L2 with the rest)
+TOL_DIST_UPDATE = 0.1
+UPDATE_EXEMPT = ("fc2.bias",)
+# sharded validation: the 2-rank run's gathered embedding cache against one
+# process's, within this fraction of its largest value (the runs' weights
+# differ by the ranks' rounding), each utterance's nearest to its own
+TOL_DIST_EMBED = 1e-5
+DIST_TIMEOUT = 900
 TOL_EMBED = 1e-4         # golden-embedding tolerance (tests/test_example_artifact.py)
 TOL_CONV_FP = 1e-6       # B3 float outputs, relative (int8 outputs must be equal)
 COSINE_GUARD = 0.98      # int8_static vs fp embeddings (models/quantized.py's guard)
@@ -655,7 +700,7 @@ def scale_key(name):
     return "fc2.weight" if name == "fc2.bias" else name
 
 
-def compare_grads(got, ref, what, sensitive=()):
+def compare_grads(got, ref, what, sensitive=(), tag="[train]"):
     """Every gradient within TOL_TRAIN_GRAD of the largest value of its
     scale (``scale_key``); a gradient in ``sensitive`` may instead be within
     TOL_TRAIN_L2 of its scale's L2 norm. Prints the worst tensors; returns
@@ -665,11 +710,11 @@ def compare_grads(got, ref, what, sensitive=()):
     l2 = {k: float((got[k] - ref[k]).norm()) / max(float(ref[scale_key(k)].norm()), 1e-30)
           for k in ref}
     worst = sorted(ratios, key=lambda k: -ratios[k])
-    print(f"[train] {what}: max|d| / max|g| (L2 distance / |g|) per tensor, worst five: "
+    print(f"{tag} {what}: max|d| / max|g| (L2 distance / |g|) per tensor, worst five: "
           + ", ".join(f"{k} {ratios[k]:.3g} ({l2[k]:.3g})" for k in worst[:5]))
     bad = [k for k in worst
            if not (ratios[k] <= TOL_TRAIN_GRAD or (k in sensitive and l2[k] <= TOL_TRAIN_L2))]
-    check(not bad, f"[train] {what}: gradients beyond {TOL_TRAIN_GRAD} of their largest (the "
+    check(not bad, f"{tag} {what}: gradients beyond {TOL_TRAIN_GRAD} of their largest (the "
           f"encoder's and fc2.bias's, beyond {TOL_TRAIN_L2} of their norm): "
           + ", ".join(f"{k} {ratios[k]:.3g} ({l2[k]:.3g})" for k in bad))
     return (max([ratios[k] for k in ref if k not in sensitive], default=0.0),
@@ -1055,6 +1100,393 @@ def phase_trainer(root, smi):
           + f"; step 4 relative difference {err:.3g} (tol {TOL_TRAINER_RESUME}, cuDNN "
           "deterministic; the uninterrupted run with --device_prefetch 2)")
     return launches
+
+
+def dist_launch(fn, nprocs, workdir, tag):
+    """``fn`` (a function of this module) in ``nprocs`` processes on the
+    card, joined by ``tools/multihost_check.py``; fails the phase unless
+    every one exits 0. Returns their outputs."""
+    from doubleattentionspeakerverification_tpu_torch.tools.multihost_check import (
+        call_argv, launch,
+    )
+
+    results = launch(call_argv(f"chip_smoke:{fn}", workdir, device=DEVICE), nprocs,
+                     timeout=DIST_TIMEOUT, env={"PYTHONPATH": HERE}, cwd=HERE,
+                     workdir=os.path.join(workdir, f"group_{fn}"))
+    for r in results:
+        check(r.returncode == 0, f"{tag} rank {r.rank} exited {r.returncode}: "
+              f"{r.stdout[-2000:]} {r.stderr[-3000:]}")
+    return results
+
+
+def dist_model(cfg, mesh=None):
+    """The paper-width model of seed 0 (as [train]'s), this rank's columns
+    of W where they are split."""
+    import torch
+
+    from doubleattentionspeakerverification_tpu_torch.models.classifier import SpeakerClassifier
+    from doubleattentionspeakerverification_tpu_torch.models.init import init_parameters
+    from doubleattentionspeakerverification_tpu_torch.parallel.mesh import shard_model
+
+    model = init_parameters(SpeakerClassifier(cfg.model), torch.Generator().manual_seed(0))
+    return shard_model(model, mesh)
+
+
+def dist_step_result(model, mesh, out):
+    """(metrics, gradients and parameters after the step as host arrays,
+    W's gathered from the model ranks)."""
+    from doubleattentionspeakerverification_tpu_torch.parallel.mesh import (
+        SHARDED, gather_columns,
+    )
+
+    grads, params = {}, {}
+    for n, p in model.named_parameters():
+        g, v = p.grad, p.detach()
+        if n == SHARDED:
+            g, v = gather_columns(g, mesh), gather_columns(v, mesh)
+        grads[n], params[n] = g.cpu().numpy(), v.cpu().numpy()
+    return {k: float(v) for k, v in out.items()}, grads, params
+
+
+@contextlib.contextmanager
+def saved_validation_caches(prefix):
+    """While open, each validation of the port's trainer in this process
+    saves the embedding cache its EER was computed from (across ranks, the
+    gathered one) to ``<prefix>_<i>.npz``; i counts the validations."""
+    from doubleattentionspeakerverification_tpu_torch.training import trainer
+
+    original, calls = trainer.validate_eer, []
+
+    def hook(extractor, *args, **kwargs):
+        result = original(extractor, *args, **kwargs)
+        ids = sorted(extractor.cache)
+        np.savez(f"{prefix}_{len(calls)}.npz", ids=np.array(ids),
+                 emb=np.stack([np.asarray(extractor.cache[u], np.float32) for u in ids]))
+        calls.append(prefix)
+        return result
+
+    trainer.validate_eer = hook
+    try:
+        yield
+    finally:
+        trainer.validate_eer = original
+
+
+def dist_nccl_rank(workdir):
+    """[distributed], NCCL at world size 1: one train step of a small model
+    through the port's multi-process step (its gradient all-reduce runs
+    on the NCCL communicator), against the same step without the group."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from doubleattentionspeakerverification_tpu_torch.config import ExperimentConfig
+    from doubleattentionspeakerverification_tpu_torch.parallel.mesh import make_mesh
+    from doubleattentionspeakerverification_tpu_torch.training.optimizers import make_optimizer
+    from doubleattentionspeakerverification_tpu_torch.training.step import make_train_step
+
+    base = ExperimentConfig()
+    cfg = dataclasses.replace(
+        base, model=dataclasses.replace(base.model, kernel_size=64, heads_number=8,
+                                        num_spkrs=40),
+        train=dataclasses.replace(base.train, batch_size=8))
+    batch = train_batch(np.random.default_rng(13), cfg, 2, 8, 2.0, ragged=(1,))
+    got = []
+    torch.backends.cudnn.deterministic = True
+    for mesh in (make_mesh(cfg.mesh), None):
+        model = dist_model(cfg)
+        step = make_train_step(cfg, model, make_optimizer(cfg.train, model.parameters()), DEVICE,
+                               mesh=mesh)
+        got.append(dist_step_result(model, mesh, step(batch)))
+    (m_g, g_g, p_g), (m_p, g_p, p_p) = got
+
+    def rel(a, b):
+        return max(float(np.abs(a[k] - b[k]).max()) / max(float(np.abs(b[k]).max()), 1e-30)
+                   for k in b)
+
+    with open(os.path.join(workdir, "nccl.json"), "w") as f:
+        json.dump(dict(backend=dist.get_backend(), world=dist.get_world_size(),
+                       nccl=".".join(map(str, torch.cuda.nccl.version())),
+                       device=torch.cuda.get_device_name(torch.cuda.current_device()),
+                       loss=m_g["loss"], loss_plain=m_p["loss"], grad_rel=rel(g_g, g_p),
+                       param_rel=rel(p_g, p_p)), f)
+
+
+def dist_rank(workdir):
+    """[distributed], each of two ranks sharing the card (gloo): the paper
+    recipe's step on this rank's rows, data-parallel and with W split over
+    the two ranks (step 1 for the comparison, then DIST_STEPS timed with
+    CUDA events, the kernel counts from 0), then ``cli/train.py
+    --distributed`` on the [trainer] corpus."""
+    import contextlib
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from doubleattentionspeakerverification_tpu_torch.cli import train as cli
+    from doubleattentionspeakerverification_tpu_torch.config import ExperimentConfig, MeshConfig
+    from doubleattentionspeakerverification_tpu_torch.parallel.mesh import make_mesh
+    from doubleattentionspeakerverification_tpu_torch.training.optimizers import make_optimizer
+    from doubleattentionspeakerverification_tpu_torch.training.step import make_train_step
+
+    rank = dist.get_rank()
+    with np.load(os.path.join(workdir, "batch.npz")) as z:
+        batch = {k: z[k] for k in z.files}
+    stats = {"backend": dist.get_backend(), "device": str(torch.cuda.current_device())}
+    for tag, model_axis in (("dp", 1), ("mp", 2)):
+        cfg = dataclasses.replace(ExperimentConfig(), mesh=MeshConfig(model_axis=model_axis))
+        mesh = make_mesh(cfg.mesh)
+        model = dist_model(cfg, mesh)
+        step = make_train_step(cfg, model, make_optimizer(cfg.train, model.parameters()), DEVICE,
+                               mesh=mesh)
+        lo, hi, _ = step.rows
+        local = {k: v[:, lo:hi] for k, v in batch.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        count_reset()
+        metrics, grads, params = dist_step_result(model, mesh, step(local))
+        # every rank's parameters, to hold the replicas equal; rank 0's gradients
+        np.savez(os.path.join(workdir, f"{tag}_rank{rank}.npz"),
+                 **{f"param/{k}": v for k, v in params.items()},
+                 **({f"grad/{k}": v for k, v in grads.items()} if rank == 0 else {}))
+        del grads, params
+        times = []
+        for _ in range(DIST_STEPS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            step(local)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        stats[tag] = dict(metrics, rows=[lo, hi], columns=list(model.amsoftmax.W.shape),
+                          launches=counts(), times_ms=times,
+                          peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        del model, step
+        torch.cuda.empty_cache()
+        dist.barrier()
+    # the CLI across the two ranks, on the [trainer] corpus
+    with open(os.path.join(workdir, "cli_argv.json")) as f:
+        argv = json.load(f)
+    count_reset()
+    t0 = time.perf_counter()
+    with open(os.path.join(workdir, f"cli_rank{rank}.log"), "w") as f, \
+            contextlib.redirect_stdout(f), \
+            saved_validation_caches(os.path.join(workdir, f"cache_rank{rank}")):
+        stats["cli_rc"] = cli.main(argv + ["--distributed"])
+    stats["cli"] = dict(launches=counts(), wall_s=time.perf_counter() - t0)
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(stats, f)
+
+
+def compare_validation_caches(work, n):
+    """Holds the embedding caches that ``saved_validation_caches`` wrote for
+    each of ``n`` validations: the two ranks' gathered caches equal bit for
+    bit, and within TOL_DIST_EMBED of one process's, each utterance's
+    embedding nearer its own than any other's, so a gather onto the wrong
+    utterances shows. Returns, a validation each, the largest distance
+    from one process's and the nearest other utterance's, over the largest
+    value."""
+    emb_err, emb_gap = [], []
+    for i in range(n):
+        caches = []
+        for who in ("rank0", "rank1", "one"):
+            with np.load(os.path.join(work, f"cache_{who}_{i}.npz")) as z:
+                caches.append((z["ids"], z["emb"]))
+        (ids0, emb0), (ids1, emb1), (ids, emb) = caches
+        check(np.array_equal(ids0, ids) and np.array_equal(ids1, ids)
+              and np.array_equal(emb0, emb1),
+              f"[distributed] validation {i}: the ranks' gathered caches differ from each other "
+              f"or in their utterances from one process's")
+        d = np.abs(emb0[:, None, :] - emb[None, :, :]).max(axis=-1)   # sharded x one process
+        own = np.diag(d)
+        others = np.where(np.eye(len(ids), dtype=bool), np.inf, d).min(axis=1)
+        emb_err.append(float(own.max()) / float(np.abs(emb).max()))
+        emb_gap.append(float(others.min()) / float(np.abs(emb).max()))
+        check(emb_err[-1] <= TOL_DIST_EMBED and bool((own < others).all()),
+              f"[distributed] validation {i}: sharded embeddings within {emb_err[-1]:.3g} of "
+              f"their largest from one process's (tol {TOL_DIST_EMBED}); "
+              f"{int((own >= others).sum())} utterances nearer another's embedding")
+    return emb_err, emb_gap
+
+
+def phase_distributed(root, smi):
+    """The port's multi-process training on the card (see the module
+    docstring): NCCL at world size 1; the paper-width step on two ranks
+    sharing the card over gloo, data-parallel and with W split, against
+    one process's step; ``cli/train.py --distributed --model_parallel 2
+    --checkpoint_backend orbax`` against one process's run, and a 2 -> 1
+    resume from its step-2 ``.dcp``. Uses the [trainer] corpus under
+    ``root``. Returns B1's and B2's launches a rank in the step."""
+    import torch
+
+    from doubleattentionspeakerverification_tpu_torch.config import ExperimentConfig
+    from doubleattentionspeakerverification_tpu_torch.training.optimizers import make_optimizer
+    from doubleattentionspeakerverification_tpu_torch.training.step import make_train_step
+
+    t_phase = time.perf_counter()
+    work = os.path.join(root, "distributed")
+    os.makedirs(work)
+
+    # NCCL at world size 1
+    dist_launch("dist_nccl_rank", 1, work, "[distributed] NCCL")
+    with open(os.path.join(work, "nccl.json")) as f:
+        nccl = json.load(f)
+    check(nccl["backend"] == "nccl" and nccl["world"] == 1, f"[distributed] NCCL run: {nccl}")
+    check(abs(nccl["loss"] - nccl["loss_plain"]) <= TOL_TRAIN_LOSS
+          and nccl["grad_rel"] <= TOL_TRAIN_GRAD and nccl["param_rel"] <= TOL_TRAIN_GRAD,
+          f"[distributed] the step through NCCL at world size 1 differs from the plain step: "
+          f"{nccl}")
+    print(f"[distributed] NCCL {nccl['nccl']} at world size 1 on {nccl['device']}: backend "
+          f"{nccl['backend']}; one step of a k=64 model through the communicator (its gradient "
+          f"all-reduce), cuDNN deterministic, against the step without it: loss "
+          f"{nccl['loss']:.6f} vs {nccl['loss_plain']:.6f}, gradients within "
+          f"{nccl['grad_rel']:.3g} and parameters within {nccl['param_rel']:.3g} of their "
+          f"largest (tol {TOL_TRAIN_GRAD})")
+
+    # the paper-width step, one process, as the two ranks will take it
+    cfg = ExperimentConfig()
+    t = cfg.train
+    batch = train_batch(np.random.default_rng(10), cfg, t.gradient_accumulation, t.batch_size,
+                        t.window_size, ragged=(1,))
+    np.savez(os.path.join(work, "batch.npz"), **batch)
+    model = dist_model(cfg)
+    step = make_train_step(cfg, model, make_optimizer(t, model.parameters()), DEVICE)
+    ref_m, ref_g, ref_p = dist_step_result(model, None, step(batch))
+    p0 = {n: v.detach().numpy() for n, v in dist_model(cfg).named_parameters()}
+    del model, step
+    torch.cuda.empty_cache()
+    out_dir = os.path.join(root, "dist_cli")
+    cli_flags = ("--model_parallel", "2", "--checkpoint_backend", "orbax", "--optimizer", "SGD")
+    with open(os.path.join(work, "cli_argv.json"), "w") as f:
+        json.dump(trainer_argv(root, out_dir, *cli_flags), f)
+
+    t0 = time.perf_counter()
+    results = dist_launch("dist_rank", 2, work, "[distributed]")
+    ranks_wall = time.perf_counter() - t0
+    stats = []
+    for r in range(2):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            stats.append(json.load(f))
+    for r, (res, st) in enumerate(zip(results, stats)):
+        check(st["backend"] == "gloo" and "backend gloo" in res.stdout,
+              f"[distributed] rank {r}: backend {st['backend']} (two ranks on one card: gloo)")
+    sensitive = {k for k in ref_g if k.startswith("vgg.")} | {"fc2.bias"}
+    for tag in ("dp", "mp"):
+        lo, hi = stats[0][tag]["rows"]
+        what = (f"data-parallel, {hi - lo} rows a rank" if tag == "dp" else
+                f"W split, {stats[0][tag]['columns'][1]} columns a rank")
+        got_p = []
+        for r in range(2):
+            with np.load(os.path.join(work, f"{tag}_rank{r}.npz")) as z:
+                got_p.append({k[6:]: z[k] for k in z.files if k.startswith("param/")})
+                if r == 0:
+                    got_g = {k[5:]: torch.from_numpy(z[k]) for k in z.files
+                             if k.startswith("grad/")}
+        check(sorted(got_g) == sorted(got_p[0]) == sorted(got_p[1]) == sorted(ref_g),
+              f"[distributed] {tag}: parameter set")
+        unequal = [k for k in ref_p if not np.array_equal(got_p[0][k], got_p[1][k])]
+        check(not unequal, f"[distributed] {tag}: the two ranks' replicas differ after the step "
+              f"in {unequal}")
+        for r, st in enumerate(stats):
+            s = st[tag]
+            err = abs(s["loss"] - ref_m["loss"])
+            check(err <= TOL_TRAIN_LOSS, f"[distributed] {tag} rank {r}: loss {s['loss']} vs "
+                  f"one process {ref_m['loss']}")
+            for name in ("mha_pool", "logmel"):
+                check(s["launches"][name] > 0, f"[distributed] {tag} rank {r}: kernel {name} "
+                      "was never launched")
+        gmax, gl2 = compare_grads(got_g, {k: torch.from_numpy(v) for k, v in ref_g.items()},
+                                  f"{what}, vs one process", sensitive, tag="[distributed]")
+        ul2 = {k: float(np.linalg.norm((got_p[0][k] - p0[k]) - (ref_p[k] - p0[k]))
+                        / max(np.linalg.norm(ref_p[k] - p0[k]), 1e-30)) for k in ref_p}
+        held = {k: v for k, v in ul2.items() if k not in UPDATE_EXEMPT}
+        worst = sorted(held, key=held.get, reverse=True)[:5]
+        check(held[worst[0]] <= TOL_DIST_UPDATE, f"[distributed] {tag}: the step's update of "
+              f"{worst[0]} at L2 {held[worst[0]]:.3g} of its norm from one process's")
+        print(f"[distributed] step 1, {what} (G={t.gradient_accumulation} x {t.batch_size} "
+              f"windows of {t.window_size} s in all): loss "
+              + ", ".join(f"rank {r} {st[tag]['loss']:.6f}" for r, st in enumerate(stats))
+              + f" vs one process {ref_m['loss']:.6f} (tol {TOL_TRAIN_LOSS}); gradients within "
+              f"{gmax:.3g} of their largest, the encoder's and fc2.bias's within {gl2:.3g} of "
+              f"their norm (tol {TOL_TRAIN_GRAD} / {TOL_TRAIN_L2}); the two ranks' parameters "
+              f"equal bit for bit after the step; the Adam update's L2 distance / norm from one "
+              f"process's, worst five: " + ", ".join(f"{k} {held[k]:.3g}" for k in worst)
+              + f" (tol {TOL_DIST_UPDATE}; " + ", ".join(f"{k} {ul2[k]:.3g}"
+                                                          for k in UPDATE_EXEMPT)
+              + " exempt)")
+        for r, st in enumerate(stats):
+            s = st[tag]
+            print(f"[distributed] {tag} rank {r}: rows {s['rows']}, W {s['columns']}, "
+                  f"launches in its 1 + {DIST_STEPS} steps {json.dumps(s['launches'])}; step "
+                  f"times " + ", ".join(f"{x:.1f}" for x in s["times_ms"]) + f" ms (CUDA "
+                  f"events, two ranks sharing the card), median "
+                  f"{float(np.median(s['times_ms'])):.1f} ms; peak "
+                  f"torch.cuda.max_memory_allocated {s['peak_gib']:.2f} GiB; on {smi}")
+    del got_g, got_p, ref_g
+
+    # the CLI: 2 ranks, W split, .dcp checkpoints, SGD, 4 steps, against one process
+    check(all(st["cli_rc"] == 0 for st in stats), f"[distributed] cli exits {stats}")
+    for r, st in enumerate(stats):
+        for name in ("mha_pool", "logmel"):
+            check(st["cli"]["launches"][name] > 0,
+                  f"[distributed] cli rank {r}: kernel {name} was never launched")
+    log = os.path.join(root, "console.log")
+    one = os.path.join(root, "dist_one")
+    with saved_validation_caches(os.path.join(work, "cache_one")):
+        trainer_cli(trainer_argv(root, one, *cli_flags), log)
+    ev2, ev1 = trainer_events(out_dir), trainer_events(one)
+
+    def by_step(events, kind, key):
+        return {int(e["step"]): e[key] for e in events if e["event"] == kind}
+
+    l2, l1 = by_step(ev2, "train", "xent"), by_step(ev1, "train", "xent")
+    e2, e1 = by_step(ev2, "validate", "eer"), by_step(ev1, "validate", "eer")
+    check(sorted(l2) == sorted(l1) == [1, 2, 3, 4] and sorted(e2) == sorted(e1) == [2, 4],
+          f"[distributed] cli steps {sorted(l2)} / {sorted(l1)}, validations {e2} / {e1}")
+    dl = max(abs(l2[k] - l1[k]) for k in l1)
+    de = max(abs(e2[k] - e1[k]) for k in e1)
+    check(dl <= TOL_DIST_LOSS and de <= TOL_DIST_EER,
+          f"[distributed] cli: losses {l2} vs one process {l1}; EERs {e2} vs {e1}")
+    shards = [e for e in ev2 if e["event"] == "validate_shard"]
+    check(len(shards) == 2 and all(e["n_local"] == -(-e["n_total"] // 2) for e in shards),
+          f"[distributed] sharded validation {shards}")
+    emb_err, emb_gap = compare_validation_caches(work, len(e1))
+    dcps = sorted(f for f in os.listdir(out_dir) if f.endswith(".dcp"))
+    check(len(dcps) == 3 and all(os.path.exists(os.path.join(out_dir, d, "meta.json"))
+                                 for d in dcps), f"[distributed] .dcp checkpoints {dcps}")
+    # 2 -> 1: one process resumes from the two ranks' step-2 checkpoint
+    (two,) = [d for d in dcps if d.endswith("_2.dcp")]
+    resumed = os.path.join(root, "dist_resumed")
+    os.makedirs(resumed)
+    shutil.copytree(os.path.join(out_dir, two), os.path.join(resumed, two))
+    trainer_cli(trainer_argv(root, resumed, *cli_flags, "--requeue"), log)
+    lr = by_step(trainer_events(resumed), "train", "xent")
+    check(sorted(lr) == [3, 4], f"[distributed] 2 -> 1 resume took steps {sorted(lr)}")
+    dr = max(abs(lr[k] - l1[k]) for k in lr)
+    check(dr <= TOL_DIST_LOSS, f"[distributed] 2 -> 1 resume: losses {lr} vs {l1}")
+    shard_info = shards[0]
+    print(f"[distributed] cli.train --distributed, 2 ranks on one card, --model_parallel 2, "
+          f".dcp checkpoints every step, SGD, 4 steps: losses "
+          + ", ".join(f"{l2[k]:.6f}" for k in sorted(l2)) + " vs one process "
+          + ", ".join(f"{l1[k]:.6f}" for k in sorted(l1)) + f" (max |d| {dl:.3g}, tol "
+          f"{TOL_DIST_LOSS}); sharded EERs " + ", ".join(f"{e2[k]:.4f}" for k in sorted(e2))
+          + " vs unsharded " + ", ".join(f"{e1[k]:.4f}" for k in sorted(e1))
+          + f" (max |d| {de:.3g}, tol {TOL_DIST_EER}); {shard_info['n_local']:.0f} of "
+          f"{shard_info['n_total']:.0f} utterances a rank; the ranks' gathered embedding "
+          f"caches equal, within " + ", ".join(f"{x:.3g}" for x in emb_err) + " of their "
+          f"largest from one process's (tol {TOL_DIST_EMBED}), each nearest its own (the "
+          f"nearest other utterance " + ", ".join(f"{x:.3g}" for x in emb_gap) + " away); "
+          f"launches a rank "
+          + "; ".join(json.dumps(st["cli"]["launches"]) for st in stats)
+          + "; rank walls " + ", ".join(f"{st['cli']['wall_s']:.1f}" for st in stats) + " s")
+    print(f"[distributed] 2 -> 1: one process resumed the ranks' {two} and took steps 3, 4: "
+          + ", ".join(f"{lr[k]:.6f}" for k in sorted(lr)) + f" (max |d| {dr:.3g} from the "
+          f"uninterrupted one-process run, tol {TOL_DIST_LOSS})")
+    print(f"[distributed] the ranks' command {ranks_wall:.1f} s; the phase "
+          f"{time.perf_counter() - t_phase:.1f} s of wall time")
+    return {k: stats[0]["dp"]["launches"][k] // (1 + DIST_STEPS) for k in ("mha_pool", "logmel")}
 
 
 def phase_example_checkpoint():
@@ -1962,6 +2394,7 @@ def main() -> int:
         root = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
         try:
             phase_trainer(root, smi)
+            dist_launches = phase_distributed(root, smi)
             phase_score_trials(root, smi)
             example_wavs = phase_score_trials_example(root)
             phase_extract_features(root, smi)
@@ -1969,6 +2402,8 @@ def main() -> int:
             phase_export(root)
         finally:
             shutil.rmtree(root, ignore_errors=True)
+        print(f"[distributed] B1 and B2 launches a rank in one data-parallel step: "
+              f"{json.dumps(dist_launches)}")
         print(f"[B1 backward] T'={POOL_MAIN}: " + json.dumps(dict(
             pool_bwd_stats, launches_per_train_step=train_launches["mha_pool"] // TRAIN_STEPS)))
     except PhaseError as e:

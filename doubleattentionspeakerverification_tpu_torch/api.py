@@ -117,8 +117,9 @@ class SpeakerEmbeddingModel:
     def from_checkpoint(cls, path: str, normalization: str = "cmn", device="cuda",
                         quantize: str = "none",
                         quantize_scales_path: Optional[str] = None) -> "SpeakerEmbeddingModel":
-        """Load a JAX package ``.npz`` checkpoint or a reference torch
-        ``.chkpt`` (also ``.pt``/``.pth``); the config it carries wins."""
+        """Load a JAX package ``.npz`` checkpoint, a ``.dcp`` directory of the
+        multi-process trainer, or a reference torch ``.chkpt`` (also
+        ``.pt``/``.pth``); the config it carries wins."""
         if path.endswith(REFERENCE_SUFFIXES):
             state, cfg, _epoch, _step = load_torch_checkpoint(path)
             return cls(_model_from_state(state, cfg), cfg, normalization, device, quantize,

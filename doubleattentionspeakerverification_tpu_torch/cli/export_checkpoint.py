@@ -1,5 +1,6 @@
-"""Export a JAX-format ``.npz`` checkpoint as a reference torch ``.chkpt``
-(JAX ``cli/export_checkpoint.py``).
+"""Export a JAX-format ``.npz`` checkpoint (or a ``.dcp`` directory of the
+port's multi-process trainer) as a reference torch ``.chkpt`` (JAX
+``cli/export_checkpoint.py``).
 
 The port reads the checkpoint (written by either package's trainer) into its
 model and ``torch.optim`` optimizer (``utils/weights.py:load_train_state``)
@@ -19,6 +20,7 @@ import sys
 from ..api import empty_model
 from ..config import ExperimentConfig
 from ..training.optimizers import get_lr, make_optimizer
+from ..utils import dist_ckpt
 from ..utils.checkpoint import load_checkpoint
 from ..utils.torch_export import save_torch_checkpoint
 from ..utils.weights import load_train_state, optimizer_state_by_name
@@ -29,16 +31,15 @@ def main(argv=None) -> int:
         description="Convert a framework checkpoint to a reference torch .chkpt."
     )
     parser.add_argument("--checkpoint", type=str, required=True,
-                        help="a JAX-format .npz checkpoint")
+                        help="a JAX-format .npz checkpoint or a .dcp directory")
     parser.add_argument("--out", type=str, required=True, help="output .chkpt path")
     parser.add_argument("--no_optimizer", action="store_true",
                         help="skip moment export (a fresh, loadable optimizer "
                              "state_dict is still written: the reference's "
                              "requeue loads it unconditionally)")
     params = parser.parse_args(argv)
-    if params.checkpoint.rstrip("/").endswith(".orbax"):
-        print("error: .orbax checkpoints are not ported (ROADMAP Queue A item 7); "
-              "give the run's .npz checkpoint", file=sys.stderr)
+    if dist_ckpt.is_orbax(params.checkpoint):
+        print(f"error: {dist_ckpt.ORBAX_REFUSAL.format(path=params.checkpoint)}", file=sys.stderr)
         return 2
 
     flat, meta = load_checkpoint(params.checkpoint)

@@ -18,9 +18,11 @@ encoder's int8 convolutions; ``--device cpu`` runs their plain versions.
   # or labeled:
   ... --clients clients.ndx --impostors impostors.ndx
 
-The checkpoint is the JAX package's ``.npz`` (written by either package) or
-a reference ``.chkpt``. Embedding stores and PLDA files are the JAX
-package's formats, so either package reads the other's.
+The checkpoint is the JAX package's ``.npz`` (written by either package), a
+``.dcp`` directory of the port's multi-process trainer, or a reference
+``.chkpt``; a JAX ``.orbax`` directory exits 2 with the way to convert it.
+Embedding stores and PLDA files are the JAX package's formats, so either
+package reads the other's.
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ from ..evaluation.embeddings import (
 from ..evaluation.eer import eer_exact, min_dcf
 from ..evaluation.plda import PLDA
 from ..evaluation.snorm import asnorm_trial_scores
+from ..utils import dist_ckpt
 
 
 def main(argv=None) -> int:
@@ -120,9 +123,8 @@ def main(argv=None) -> int:
         p.error("give --trials, or --clients/--impostors")
     if args.quantize != "int8_static" and (args.calibration_wav or args.int8_scales):
         p.error("--calibration_wav/--int8_scales require --quantize int8_static")
-    if args.modelCheckpoint.rstrip("/").endswith(".orbax"):
-        print("error: .orbax checkpoints are not ported (ROADMAP Queue A item 7); "
-              "give the run's .npz checkpoint", file=sys.stderr)
+    if dist_ckpt.is_orbax(args.modelCheckpoint):
+        print(f"error: {dist_ckpt.ORBAX_REFUSAL.format(path=args.modelCheckpoint)}", file=sys.stderr)
         return 2
 
     model = SpeakerEmbeddingModel.from_checkpoint(

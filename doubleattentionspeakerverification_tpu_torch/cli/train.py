@@ -9,9 +9,20 @@ continues from it), SIGUSR1 dumps every thread's stack.
 
 ``--use_pallas_dsp`` / ``--use_pallas_pooling`` are accepted for flag
 compatibility and have no effect: on CUDA tensors the port always runs
-kernels B2 and B1 (a kernel dispatcher is ROADMAP Queue A item 8).
-Multi-host training, orbax checkpoints and a model axis above 1 (Queue A
-item 7), the profiler window and TensorBoard (item 8) exit non-zero.
+kernels B2 and B1 (a kernel dispatcher is ROADMAP Queue A item 8). The
+profiler window and TensorBoard (item 8) exit non-zero.
+
+Multi-process training (``--distributed``; implied by
+``--coordinator_address`` or ``JAX_COORDINATOR_ADDRESS``): every process
+runs this command with the same flags; ``parallel.distributed.initialize``
+joins them (the coordinator from the flags, the JAX package's variables or
+torchrun's), each on its own device. ``--checkpoint_backend orbax`` writes
+the sharded ``.dcp`` directories and is required; ``--model_parallel``
+splits the AM-Softmax ``W`` over that many processes. Process 0 writes the
+config and the one JSONL stream. On two cards of one machine::
+
+    torchrun --nproc_per_node 2 -m doubleattentionspeakerverification_tpu_torch.cli.train \
+        --distributed --checkpoint_backend orbax ...
 """
 
 from __future__ import annotations
@@ -202,13 +213,14 @@ def make_parser() -> argparse.ArgumentParser:
     parser.add_argument("--checkpoint_every", type=int, default=0)
     parser.add_argument("--checkpoint_backend", type=str, default="npz",
                         choices=["npz", "orbax"],
-                        help="'orbax' is not ported (ROADMAP Queue A item 7) "
-                             "and exits non-zero")
+                        help="'orbax' writes sharded <name>_<step>.dcp "
+                             "directories (each process writes its own shards); "
+                             "required with more than one process")
     parser.add_argument("--checkpoint_async", action=argparse.BooleanOptionalAction,
                         default=True,
-                        help="kept for flag compatibility: periodic saves "
-                             "always block only for the device->host copy; "
-                             "best-EER saves block until written")
+                        help="npz: periodic saves block only for the "
+                             "device->host copy, best-EER saves until written "
+                             "(the .dcp backend always writes synchronously)")
     parser.add_argument("--valid_long_audio", type=str, default="chunk",
                         choices=["chunk", "pad"],
                         help="validation utterances beyond 2x the largest "
@@ -216,8 +228,9 @@ def make_parser() -> argparse.ArgumentParser:
                              "chunks; 'pad' = the reference's full-length "
                              "semantics")
     parser.add_argument("--preempt_sync_every", type=int, default=10,
-                        help="kept for flag compatibility (multi-host only); "
-                             "one host checks its stop flag every step")
+                        help="multi-process: agree on a SIGTERM graceful-stop "
+                             "verdict every N steps (one tiny collective); "
+                             "one process checks its flag every step")
     parser.add_argument("--seed", type=int, default=1234)
     parser.add_argument("--stall_exit_s", type=float, default=0.0,
                         help="exit(17) after this many seconds without a "
@@ -250,10 +263,17 @@ def make_parser() -> argparse.ArgumentParser:
                              "over the last batch and log this run's "
                              "isolated-step ms (step_bench event)")
     parser.add_argument("--distributed", action="store_true",
-                        help="multi-host training: not ported (ROADMAP Queue A "
-                             "item 7); exits non-zero")
+                        help="multi-process training: join the process group "
+                             "before building the trainer. The coordinator and "
+                             "topology come from the flags below, the env vars "
+                             "JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / "
+                             "JAX_PROCESS_ID, or torchrun's MASTER_ADDR / "
+                             "MASTER_PORT / WORLD_SIZE / RANK. Implied when "
+                             "JAX_COORDINATOR_ADDRESS is set. Requires "
+                             "--checkpoint_backend orbax")
     parser.add_argument("--coordinator_address", type=str, default=None,
-                        help="host:port of process 0 (multi-host)")
+                        help="host:port of process 0 (or file:///path for "
+                             "processes on one machine)")
     parser.add_argument("--num_processes", type=int, default=None)
     parser.add_argument("--process_id", type=int, default=None)
     parser.add_argument("--shard_validation", action=argparse.BooleanOptionalAction,
@@ -284,10 +304,6 @@ def refused_flags(params: argparse.Namespace):
     """The flags the port does not carry out that the config does not hold,
     each with its ROADMAP item (``refuse_unported`` covers the config's)."""
     out = []
-    if params.distributed or params.coordinator_address or params.num_processes or \
-            params.process_id is not None:
-        out.append("--distributed/--coordinator_address/--num_processes/--process_id: "
-                   "multi-host training is not ported (ROADMAP Queue A item 7)")
     if params.tensorboard_dir:
         out.append("--tensorboard_dir: the TensorBoard sink is not ported "
                    "(ROADMAP Queue A item 8)")
@@ -314,6 +330,19 @@ def main(argv=None) -> int:
             refuse_unported(cfg)
         except ValueError as e:
             refused.append(str(e))
+    # several processes: join them before the trainer's first device use
+    host_id, device = 0, params.device
+    if not refused and (params.distributed or params.coordinator_address
+                        or os.environ.get("JAX_COORDINATOR_ADDRESS")):
+        from ..parallel.distributed import initialize
+
+        try:
+            info = initialize(params.coordinator_address, params.num_processes,
+                              params.process_id, force=params.distributed, device=params.device)
+        except ValueError as e:
+            refused.append(str(e))
+        else:
+            host_id, device = info.host_id, info.device
     if refused:
         for msg in refused:
             print(f"error: {msg}", file=sys.stderr)
@@ -321,9 +350,14 @@ def main(argv=None) -> int:
 
     os.makedirs(cfg.out_dir, exist_ok=True)
     name = cfg.derived_model_name()
-    with open(os.path.join(cfg.out_dir, f"{name}_config.json"), "w") as f:
-        f.write(cfg.to_json())
-    logger = MetricLogger(jsonl_path=os.path.join(cfg.out_dir, f"{name}_metrics.jsonl"))
+    if host_id == 0:
+        with open(os.path.join(cfg.out_dir, f"{name}_config.json"), "w") as f:
+            f.write(cfg.to_json())
+    # one console and JSONL stream a run: the other processes train the same
+    # global step and would repeat every event
+    quiet = None if host_id == 0 else open(os.devnull, "w")
+    logger = (MetricLogger(jsonl_path=os.path.join(cfg.out_dir, f"{name}_metrics.jsonl"))
+              if quiet is None else MetricLogger(stream=quiet))
     # SIGTERM (a scheduler's preemption notice) asks for a checkpoint at the
     # next step boundary and a clean exit; installed before construction so
     # a signal then is not lost. SIGINT keeps its default.
@@ -343,7 +377,7 @@ def main(argv=None) -> int:
         pass  # not the main thread
 
     try:
-        trainer = Trainer(cfg, logger=logger, device=params.device)
+        trainer = Trainer(cfg, logger=logger, device=device)
         stop_box["trainer"] = trainer
         if stop_box.get("early"):
             trainer.request_stop("SIGTERM (during construction)")
@@ -356,6 +390,8 @@ def main(argv=None) -> int:
         trainer.train()
     finally:
         logger.close()
+        if quiet is not None:
+            quiet.close()
         if previous is not None:
             signal.signal(signal.SIGTERM, previous)
     return 0

@@ -8,10 +8,10 @@ loads in the other field for field. ``from_dict`` skips unknown keys.
 
 Fields that name TPU machinery are kept for that round trip and have no
 effect here: ``use_pallas_pooling`` / ``use_pallas_dsp`` (on CUDA tensors
-the port always runs kernels B1 and B2), ``remat_vgg``,
-``preempt_sync_every`` and ``shard_validation`` (multi-host only). The
-trainer refuses the settings it does not port: ``checkpoint_backend
-"orbax"``, ``mesh.model_axis > 1`` and a ``profile_dir``.
+the port always runs kernels B1 and B2) and ``remat_vgg``.
+``checkpoint_backend = "orbax"`` selects the port's sharded ``.dcp``
+checkpoints (``utils/dist_ckpt.py``). The trainer refuses a
+``profile_dir``.
 """
 
 from __future__ import annotations
@@ -124,12 +124,14 @@ class TrainConfig:
     # we additionally save every `checkpoint_every` steps (0 = off).
     checkpoint_every: int = 0
     keep_checkpoints: int = 3
-    # 'npz' (one file per checkpoint, the JAX package's format). 'orbax'
-    # (sharded directories for multi-host meshes) is refused by the trainer.
+    # 'npz' (one file per checkpoint, the JAX package's format) or 'orbax':
+    # sharded <name>_<step>.dcp directories (utils/dist_ckpt.py), each
+    # process writing its own shards; required with more than one process.
     checkpoint_backend: str = "npz"
     # Checkpoints are copied to the host synchronously (the optimizer updates
     # in place) and written by a background thread; best-EER saves block.
-    # Kept for the config round trip: npz writes are always asynchronous.
+    # Kept for the config round trip: npz writes are always asynchronous,
+    # .dcp writes (a collective) always synchronous.
     checkpoint_async: bool = True
     # Failure recovery: 0 = the stall watchdog only logs; >0 = after this
     # many seconds without a completed step, dump all thread stacks and
@@ -143,9 +145,9 @@ class TrainConfig:
     # Graceful preemption: SIGTERM requests a stop; the train loop saves a
     # checkpoint AT the next step boundary, waits for it, and exits 0 so
     # --requeue continues with no lost steps (the reference rolls back to its
-    # last best-EER checkpoint, train.py:31-49). The multi-host agreement
-    # interval is kept for the config round trip; one host checks its flag
-    # every step.
+    # last best-EER checkpoint, train.py:31-49). Across processes the stop
+    # is agreed every preempt_sync_every steps (the OR of every process's
+    # flag); one process checks its flag every step.
     preempt_sync_every: int = 10
     # Validation utterances beyond 2x the largest length bucket (160 s):
     # 'chunk' (default) = duration-weighted centroid of largest-bucket
@@ -173,7 +175,9 @@ class TrainConfig:
     # pending validations are joined at epoch end before LR halving and the
     # early-stop check.
     async_validation: bool = True
-    # Multi-host validation sharding: kept for the config round trip.
+    # Across processes each one embeds its shard of the validation
+    # utterances and the embeddings are gathered (the same EER everywhere);
+    # False: every process embeds them all.
     shard_validation: bool = True
     # After training, time this many steps on a copy of the model and the
     # optimizer over the last batch and log a `step_bench` event: the
@@ -369,8 +373,9 @@ def auto_wav_mode() -> Tuple[str, float, str]:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """The JAX package's device mesh. The port trains on one device: a
-    ``model_axis`` above 1 is refused by the trainer."""
+    """The ('data', 'model') layout over the processes of a multi-process
+    run (``parallel/mesh.py``), one device a process; ``model_axis``
+    processes split the AM-Softmax ``W``. One process ignores it."""
 
     data_axis: int = -1                   # -1 -> all remaining devices
     model_axis: int = 1                   # shards of the speaker classifier W

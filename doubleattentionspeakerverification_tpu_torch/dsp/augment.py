@@ -48,12 +48,20 @@ def apply_masks(feats: torch.Tensor, time: Optional[Spans], freq: Optional[Spans
 
 
 def spec_augment(feats: torch.Tensor, generator: torch.Generator, time_masks: int = 2,
-                 time_width: int = 30, freq_masks: int = 2, freq_width: int = 10) -> torch.Tensor:
-    """SpecAugment on a (B, T, F) batch, its spans drawn from ``generator``."""
+                 time_width: int = 30, freq_masks: int = 2, freq_width: int = 10,
+                 rows: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
+    """SpecAugment on a (B, T, F) batch, its spans drawn from ``generator``.
+    ``rows`` = (lo, hi, total): the batch is rows [lo, hi) of a global batch
+    of ``total``; the spans are drawn for the global batch and these rows
+    take theirs, so every process of a data-parallel step draws what one
+    process would."""
     b, t, f = feats.shape
+    lo, hi, total = rows or (0, b, b)
     time = freq = None
     if time_masks > 0 and time_width > 0:
-        time = draw_spans(generator, b, time_masks, t, min(time_width, t))
+        time = tuple(a[lo:hi] for a in draw_spans(generator, total, time_masks, t,
+                                                  min(time_width, t)))
     if freq_masks > 0 and freq_width > 0:
-        freq = draw_spans(generator, b, freq_masks, f, min(freq_width, f))
+        freq = tuple(a[lo:hi] for a in draw_spans(generator, total, freq_masks, f,
+                                                  min(freq_width, f)))
     return apply_masks(feats, time, freq)

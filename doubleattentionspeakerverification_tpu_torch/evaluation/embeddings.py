@@ -288,3 +288,32 @@ def validate_eer(extractor: EmbeddingExtractor, client_trials: Sequence[Tuple[st
         "mean_client": float(np.mean(cl)),
         "mean_impostor": float(np.mean(im)),
     }
+
+
+def sharded_extract(extractor: EmbeddingExtractor, utt_ids: Sequence[str], host_id: int,
+                    num_hosts: int) -> int:
+    """Multi-process extraction (JAX ``sharded_extract``): each process
+    embeds only its shard of the sorted unique utterances (process h takes
+    ``utts[h::n]``, at most ceil(n / processes) of them), then the
+    embeddings are gathered so every process holds the whole cache and
+    computes the same EER. A row's embedding does not depend on the others
+    in its padded batch, so the gathered cache is what one process would
+    have extracted. A collective: every process calls it at the same point
+    with the same ``utt_ids``. Returns this process's shard size."""
+    from ..parallel.distributed import all_gather_np
+
+    utts = sorted(set(utt_ids))
+    todo = [u for u in utts if u not in extractor.cache]
+    if not todo:  # the caches are gathered alike, so every process agrees
+        return 0
+    shards = [todo[h::num_hosts] for h in range(num_hosts)]
+    local = shards[host_id]
+    extractor.extract(local)
+    buf = np.zeros((max(len(s) for s in shards), extractor.model.cfg.embedding_size), np.float32)
+    for i, u in enumerate(local):
+        buf[i] = extractor.cache[u]
+    gathered = all_gather_np(buf)
+    for h, shard in enumerate(shards):
+        for i, u in enumerate(shard):
+            extractor.cache[u] = gathered[h, i]
+    return len(local)

@@ -82,5 +82,9 @@ def focal_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                         gamma: float = 2.0) -> torch.Tensor:
     """Focal softmax (``loss.py:54-70``): (1 - p)^gamma * CE with p = exp(-CE),
     on the batch-mean CE as the reference computes it."""
-    ce = cross_entropy(logits, labels)
+    return focal_of(cross_entropy(logits, labels), gamma)
+
+
+def focal_of(ce: torch.Tensor, gamma: float = 2.0) -> torch.Tensor:
+    """The focal loss of a batch-mean cross-entropy ``ce``."""
     return (1.0 - torch.exp(-ce)) ** gamma * ce

@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import ModelConfig
+from ..parallel.distributed import all_reduce_sum
 from .amsoftmax import AMSoftmax
 from .poolings import DoubleMHAPooling, make_pooling, pooled_dim
 from .vgg import VGG, vgg_output_dim
@@ -31,18 +32,33 @@ class BatchNorm(nn.BatchNorm1d):
     mean and variance by ``momentum`` toward the batch mean and the unbiased
     variance (var * n / max(1, n - 1), so a batch of one item gives variance 0
     and the output is the bias, where torch's own raises), and count the
-    batch in ``num_batches_tracked``. ``eval()`` is torch's."""
+    batch in ``num_batches_tracked``. ``eval()`` is torch's.
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    With ``group`` (the data ranks' process group, given by the train step)
+    the batch is the global one, as under JAX's data sharding (JAX
+    ``models/classifier.py:10-12``): the count and the sum, then the sum of
+    squared deviations from the global mean, are summed over the group by
+    differentiable all-reduces, and every rank moves its running statistics
+    by the same global moments."""
+
+    def forward(self, x: torch.Tensor, group=None) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        mean = x.mean(dim=0)
-        var = ((x - mean) ** 2).mean(dim=0)
-        n = x.shape[0]
+        if group is None:
+            mean = x.mean(dim=0)
+            var = ((x - mean) ** 2).mean(dim=0)
+            n = x.shape[0]
+            unbias = n / max(1, n - 1)
+        else:
+            stats = all_reduce_sum(torch.cat([x.sum(dim=0), x.new_full((1,), x.shape[0])]), group)
+            n = stats[-1]
+            mean = stats[:-1] / n
+            var = all_reduce_sum(((x - mean) ** 2).sum(dim=0), group) / n
+            unbias = n / torch.clamp(n - 1, min=1)
         with torch.no_grad():
             m = self.momentum
             self.running_mean.mul_(1 - m).add_(m * mean)
-            self.running_var.mul_(1 - m).add_(m * (var * (n / max(1, n - 1))))
+            self.running_var.mul_(1 - m).add_(m * (var * unbias))
             self.num_batches_tracked.add_(1)
         return (x - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
 
@@ -66,36 +82,34 @@ class SpeakerClassifier(nn.Module):
         self.amsoftmax = AMSoftmax(emb, cfg.num_spkrs)
 
     def tail(self, enc: torch.Tensor, enc_len: Optional[torch.Tensor],
-             keep: Optional[torch.Tensor] = None,
-             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+             keep: Optional[torch.Tensor] = None, group=None) -> torch.Tensor:
         """Everything after the encoder (JAX ``trunk_tail``): pooling -> fc1
         -> fc2 -> ``b2``. The int8 encoders (``models/quantized.py``) share it.
-        ``keep`` / ``generator`` feed DoubleMHA's head dropout in ``train()``."""
+        In ``train()``, ``keep`` is DoubleMHA's head-dropout mask and ``group``
+        the data ranks over which ``b2`` takes its batch statistics."""
         if isinstance(self.pooling, DoubleMHAPooling):
-            pooled = self.pooling(enc, enc_len, keep, generator)
+            pooled = self.pooling(enc, enc_len, keep)
         else:
             pooled = self.pooling(enc, enc_len)
         e1 = F.relu(self.fc1(pooled))
         e2 = F.relu(self.fc2(e1))
-        return self.b2(e2)
+        return self.b2(e2, group)
 
     def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(B, T, F) normalized log-mel (+ valid lengths) -> (B, emb)."""
         return self.tail(*self.vgg(x, lengths))
 
     def classifier_features(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None,
-                            keep: Optional[torch.Tensor] = None,
-                            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                            keep: Optional[torch.Tensor] = None, group=None) -> torch.Tensor:
         """Trunk + preLayer: the (B, emb) vector the AM-Softmax head takes."""
-        return self.pre_layer(self.tail(*self.vgg(x, lengths), keep, generator))
+        return self.pre_layer(self.tail(*self.vgg(x, lengths), keep, group))
 
     def classify(self, x: torch.Tensor, labels: torch.Tensor, step,
                  lengths: Optional[torch.Tensor] = None, keep: Optional[torch.Tensor] = None,
-                 generator: Optional[torch.Generator] = None
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+                 group=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """The full forward (JAX ``speaker_classifier_apply``): (costh, scaled
         margin logits), (B, num_spkrs) each."""
-        return self.amsoftmax(self.classifier_features(x, lengths, keep, generator), labels,
+        return self.amsoftmax(self.classifier_features(x, lengths, keep, group), labels,
                               step, self.cfg)
 
 

@@ -16,8 +16,9 @@ sqrt(heads_number) under the reference's ``d_k = heads`` quirk
 Head dropout (poolings.py:36-43, JAX ``models/poolings.py:126-153``): in
 ``train()`` each head's score is masked to ``NEG_INF`` with probability
 ``1 / int(1 / mask_prob)``; a row whose heads are all dropped keeps its
-scores. The keep mask is drawn from an explicit ``torch.Generator``, or
-given, so tests can feed the JAX package's draws.
+scores. The caller gives the keep mask (:func:`draw_head_keep`; the train
+step draws it for the global batch), so tests can feed the JAX package's
+draws.
 """
 
 from __future__ import annotations
@@ -81,17 +82,15 @@ class HeadAttention(nn.Module):
         self.mask_prob = mask_prob
         self.att = nn.Parameter(torch.empty(head_size, 1))
 
-    def forward(self, heads_ctx: torch.Tensor, keep: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def forward(self, heads_ctx: torch.Tensor,
+                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(B, H, d_h) -> (B, d_h), softmax over the heads. In ``train()``
         with ``mask_prob > 0``, heads where ``keep`` (B, H) is False are
-        dropped; without ``keep`` it is drawn from ``generator``."""
+        dropped; ``keep`` is then required."""
         scores = (heads_ctx @ self.att)[..., 0]
         if self.training and self.mask_prob > 0:
             if keep is None:
-                if generator is None:
-                    raise ValueError("head dropout in train mode needs a keep mask or a generator")
-                keep = draw_head_keep(*scores.shape, self.mask_prob, generator)
+                raise ValueError("head dropout in train mode needs a keep mask (draw_head_keep)")
             keep = keep.to(scores.device)
             masked = torch.where(keep, scores, NEG_INF)
             scores = torch.where(keep.any(dim=-1, keepdim=True), masked, scores)
@@ -111,9 +110,8 @@ class DoubleMHAPooling(nn.Module):
         self.head_att = HeadAttention(encoder_size // heads, mask_prob)
 
     def forward(self, ht: torch.Tensor, lengths: Optional[torch.Tensor],
-                keep: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        return self.head_att(self.mha(ht, lengths), keep, generator)
+                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.head_att(self.mha(ht, lengths), keep)
 
     def alignments(self, ht: torch.Tensor, lengths: Optional[torch.Tensor]):
         """(time weights (B, T, H), head weights (B, H)); the head contexts

@@ -36,10 +36,14 @@ import torch
 from ..config import ExperimentConfig
 from ..dsp.augment import spec_augment
 from ..dsp.features import frames_for_samples, normalize_features
-from ..models.amsoftmax import cross_entropy, focal_cross_entropy
+from ..models.amsoftmax import cross_entropy, focal_cross_entropy, focal_of
 from ..models.classifier import SpeakerClassifier
+from ..models.poolings import draw_head_keep
 from ..ops.chunked_amsoftmax import chunked_amsoftmax_ce
 from ..ops.logmel import log_mel_spectrogram_fused
+from ..parallel.distributed import all_reduce_
+from ..parallel.mesh import SHARDED, host_batch_rows
+from ..parallel.sharded_amsoftmax import sharded_amsoftmax_ce
 from ..utils.device import resolve_device
 
 Batch = Dict[str, object]
@@ -76,36 +80,90 @@ def prepare_inputs(batch: Batch, cfg: ExperimentConfig, device: torch.device):
 
 class TrainStep:
     """``step(batch, keep=None) -> {"loss", "accuracy"}``: one optimizer step,
-    the mean loss and accuracy over its G microbatches as 0-d tensors.
-    ``keep`` is a sequence of G (B, heads) bool head-dropout masks; without
-    it they are drawn from ``generator``, reseeded by :func:`step_seed` for
-    each step. ``step`` counts optimizer updates; a resume sets it."""
+    the mean loss and accuracy over its G microbatches (and over the data
+    ranks) as 0-d tensors. ``keep`` is a sequence of G (B, heads) bool
+    head-dropout masks for the global batch of B rows; without it they are
+    drawn from ``generator``, reseeded by :func:`step_seed` for each step.
+    ``step`` counts optimizer updates; a resume sets it.
+
+    With a ``mesh`` over a process group (``parallel/mesh.py``) the batch
+    holds this process's rows of the global batch. After the last
+    microbatch the summed gradients are averaged over the processes in one
+    all-reduce of one flat buffer (one reduction per optimizer step, as
+    DDP's ``no_sync`` on the first G - 1 gives); ``b2``'s batch statistics
+    are the global batch's. With ``W`` split over the model ranks the head
+    is ``parallel/sharded_amsoftmax.py`` and ``W``'s gradient is averaged
+    over the data ranks alone. Head dropout and SpecAugment are drawn for
+    the global batch and each process takes its rows, so the step is the
+    one-process step on the same global batch. Every process holds the same
+    number of rows (``data/dataset.py``'s divisibility check), so the mean
+    of the processes' means is the global mean."""
 
     def __init__(self, cfg: ExperimentConfig, model: SpeakerClassifier,
                  optimizer: torch.optim.Optimizer, device: torch.device,
-                 generator: torch.Generator):
+                 generator: torch.Generator, mesh=None):
         self.cfg, self.model, self.optimizer = cfg, model, optimizer
         self.device, self.generator = device, generator
         self.step = 0
+        self.mesh = mesh
+        batch = cfg.train.batch_size
+        self.rows = (0, batch, batch)
+        self.w_split = mesh is not None and mesh.model > 1
+        self.data_group = None if mesh is None else mesh.data_group
+        if mesh is not None:
+            self.rows = host_batch_rows(mesh, batch) + (batch,)
+
+    def _draw_keep(self) -> Optional[torch.Tensor]:
+        head = getattr(self.model.pooling, "head_att", None)
+        if head is None or head.mask_prob <= 0:
+            return None
+        return draw_head_keep(self.rows[2], self.cfg.model.heads_number, head.mask_prob,
+                              self.generator)
 
     def _loss(self, f, lengths, labels, keep):
         mcfg, tcfg = self.cfg.model, self.cfg.train
+        if self.w_split:
+            e3 = self.model.classifier_features(f, lengths, keep, self.data_group)
+            loss, acc = sharded_amsoftmax_ce(self.model.amsoftmax.W, e3, labels, self.step, mcfg,
+                                             self.mesh)
+            return (focal_of(loss, tcfg.focal_gamma) if tcfg.criterion == "focal" else loss), acc
         if mcfg.classifier_chunk > 0:
-            e3 = self.model.classifier_features(f, lengths, keep, self.generator)
+            e3 = self.model.classifier_features(f, lengths, keep, self.data_group)
             return chunked_amsoftmax_ce(self.model.amsoftmax.W, e3, labels, self.step, mcfg,
                                         chunk=mcfg.classifier_chunk)
-        costh, logits = self.model.classify(f, labels, self.step, lengths, keep, self.generator)
+        costh, logits = self.model.classify(f, labels, self.step, lengths, keep,
+                                            self.data_group)
         if tcfg.criterion == "focal":
             loss = focal_cross_entropy(logits, labels, tcfg.focal_gamma)
         else:
             loss = cross_entropy(logits, labels)
         return loss, (costh.argmax(dim=-1) == labels).to(torch.float32).mean()
 
+    def _average_gradients(self) -> None:
+        """Every replicated parameter's gradient averaged over all the
+        processes (the model ranks of one data index hold equal ones, so
+        this is the data ranks' mean, and every replica stays equal bit for
+        bit); ``W``'s columns over the data ranks."""
+        mesh = self.mesh
+        params = [p for n, p in self.model.named_parameters()
+                  if not (self.w_split and n == SHARDED)]
+        if mesh.world_group is not None:
+            flat = torch.cat([p.grad.reshape(-1) for p in params])
+            all_reduce_(flat, mesh.world_group).div_(mesh.size)
+            offset = 0
+            for p in params:
+                n = p.grad.numel()
+                p.grad.copy_(flat[offset:offset + n].view_as(p.grad))
+                offset += n
+        if self.w_split and mesh.data_group is not None:
+            all_reduce_(self.model.amsoftmax.W.grad, mesh.data_group).div_(mesh.data)
+
     def __call__(self, batch: Batch, keep: Optional[Sequence[torch.Tensor]] = None):
         tcfg = self.cfg.train
         feats, lengths = prepare_inputs(batch, self.cfg, self.device)
         labels = _tensor(batch["labels"], self.device).to(torch.int64)
         g = feats.shape[0]
+        lo, hi, _ = self.rows
         self.generator.manual_seed(step_seed(tcfg.seed, self.step))
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
@@ -116,38 +174,51 @@ class TrainStep:
             if tcfg.specaugment:
                 f = spec_augment(f, self.generator, tcfg.specaugment_time_masks,
                                  tcfg.specaugment_time_width, tcfg.specaugment_freq_masks,
-                                 tcfg.specaugment_freq_width)
-            loss, acc = self._loss(f, None if lengths is None else lengths[i], labels[i],
-                                   None if keep is None else keep[i])
+                                 tcfg.specaugment_freq_width, rows=self.rows)
+            k = self._draw_keep() if keep is None else keep[i]
+            k = None if k is None else torch.as_tensor(k)[lo:hi]
+            loss, acc = self._loss(f, None if lengths is None else lengths[i], labels[i], k)
             loss.backward()
             loss_sum += loss.detach()
             acc_sum += acc
         for p in self.model.parameters():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-            elif tcfg.grad_accum_mean:
+        if self.mesh is not None:
+            self._average_gradients()
+        if tcfg.grad_accum_mean:
+            for p in self.model.parameters():
                 p.grad.div_(g)
         self.optimizer.step()
         self.step += 1
-        return {"loss": loss_sum / g, "accuracy": acc_sum / g}
+        metrics = torch.stack((loss_sum, acc_sum)) / g
+        if self.mesh is not None and self.mesh.data_group is not None:
+            all_reduce_(metrics, self.mesh.data_group).div_(self.mesh.data)
+        return {"loss": metrics[0], "accuracy": metrics[1]}
 
 
 def make_train_step(cfg: ExperimentConfig, model: SpeakerClassifier,
                     optimizer: torch.optim.Optimizer, device="cuda",
-                    generator: Optional[torch.Generator] = None) -> TrainStep:
+                    generator: Optional[torch.Generator] = None, mesh=None) -> TrainStep:
     """The train step of ``model`` on ``device`` (the card unless "cpu").
     ``optimizer`` is built over ``model.parameters()``
     (``training.optimizers.make_optimizer``); the model is moved to the
     device in place. The generator defaults to a CPU one, so the same seed
-    draws the same masks on either device."""
+    draws the same masks on either device. With a ``mesh`` over a process
+    group, ``model`` holds this rank's columns of ``W`` where they are split
+    (``parallel/mesh.py:shard_model``) and the step is collective: every
+    process calls it at the same point."""
     if cfg.train.criterion not in ("cross_entropy", "focal"):
         raise ValueError(f"unknown criterion {cfg.train.criterion!r}")
     if cfg.train.criterion == "focal" and cfg.model.classifier_chunk > 0:
         raise ValueError("criterion='focal' needs full logits; incompatible with classifier_chunk")
+    if mesh is not None and mesh.model > 1 and cfg.model.classifier_chunk > 0:
+        raise ValueError("classifier_chunk scans the whole W; incompatible with a model axis "
+                         "above 1")
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator()
-    return TrainStep(cfg, model.to(dev), optimizer, dev, generator)
+    return TrainStep(cfg, model.to(dev), optimizer, dev, generator, mesh)
 
 
 def make_eval_loss_step(cfg: ExperimentConfig, model: SpeakerClassifier, device="cuda"):

@@ -15,9 +15,22 @@ On the card: the step is ``training/step.py`` (kernel B2 in wav-PCM mode,
 kernel B1 forward and backward in every step), validation forwards run on
 a second, eval-mode copy of the model on a side CUDA stream, ordered after
 the step by an event, and the loss and accuracy are summed on the device
-with one host read per print window. One host, one device: the JAX
-package's multi-host paths, orbax checkpoints, model-axis sharding and
-profiler window are refused (ROADMAP Queue A items 7 and 8).
+with one host read per print window.
+
+Across processes (``parallel/``; after ``parallel.distributed.initialize``
+the trainer takes the process group's rank and size): one device a
+process, the ('data', 'model') layout of ``cfg.mesh`` over them, each
+process's loader assembling its rows of the global batch, the AM-Softmax
+``W`` split over the model ranks, and, as in the JAX package: checkpoints
+in the sharded ``.dcp`` backend (``checkpoint_backend="orbax"``, which more
+than one process requires; ``utils/dist_ckpt.py``), serial validation, each
+process embedding its shard of the utterances (``shard_validation``), the
+coordinator's auto wav-mode verdict and cache demotion broadcast, and a
+graceful stop agreed every ``preempt_sync_every`` steps as the OR of every
+process's flag. Validation needs no gather of ``W``: the embedding stops
+at ``b2``, and every other parameter is whole on every process. One
+process ignores ``mesh`` (JAX on one device makes no mesh either). The JAX
+package's profiler window is refused (ROADMAP Queue A item 8).
 """
 
 from __future__ import annotations
@@ -31,6 +44,7 @@ from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import ExperimentConfig
 from ..data.dataset import FeaturePickleSource, TrainLoader, WavSource
@@ -43,6 +57,8 @@ from ..evaluation.embeddings import (
 )
 from ..models.classifier import SpeakerClassifier
 from ..models.init import init_parameters
+from ..parallel.distributed import all_gather_np, broadcast_np
+from ..parallel.mesh import host_batch_rows, make_mesh, shard_columns, shard_model
 from ..utils.checkpoint import (
     AsyncCheckpointer,
     latest_checkpoint,
@@ -60,12 +76,8 @@ from .step import TrainStep, make_train_step
 def refuse_unported(cfg: ExperimentConfig) -> None:
     """Settings of the JAX trainer that the port does not carry out raise
     here rather than being ignored."""
-    if cfg.train.checkpoint_backend != "npz":
-        raise ValueError(f"checkpoint_backend {cfg.train.checkpoint_backend!r} is not ported "
-                         "(ROADMAP Queue A item 7); the port writes 'npz'")
-    if cfg.mesh.model_axis > 1:
-        raise ValueError(f"mesh.model_axis {cfg.mesh.model_axis}: the sharded classifier is "
-                         "not ported (ROADMAP Queue A item 7)")
+    if cfg.train.checkpoint_backend not in ("npz", "orbax"):
+        raise ValueError(f"unknown checkpoint_backend {cfg.train.checkpoint_backend!r}")
     if cfg.train.profile_dir:
         raise ValueError("profile_dir: the profiler window is not ported "
                          "(ROADMAP Queue A item 8)")
@@ -110,19 +122,41 @@ class Trainer:
         self.device = resolve_device(device)
         self.log = logger or MetricLogger()
         self.model_name = cfg.derived_model_name()
+        live = dist.is_initialized()
+        self.host_id = dist.get_rank() if live else 0
+        self.num_hosts = dist.get_world_size() if live else 1
+        if self.num_hosts > 1 and cfg.train.checkpoint_backend != "orbax":
+            # npz gathers every leaf into one file on one process
+            raise ValueError(
+                "multi-host training requires checkpoint_backend='orbax' "
+                "(npz checkpoints host-gather; pass --checkpoint_backend orbax)"
+            )
         # the clock starts at construction: a wedged first device call
         # shows too
         self._watchdog = self._make_watchdog().start()
         self._wav_mode_requested = cfg.data.wav_mode
+        if self.num_hosts > 1 and cfg.data.source == "wav" and cfg.data.wav_mode == "auto":
+            self.cfg = cfg = self._pin_wav_mode(cfg)
 
+        self.mesh = None
+        self._local_rows = None
+        if self.num_hosts > 1:
+            data_size = self.num_hosts // max(1, cfg.mesh.model_axis)
+            if cfg.train.batch_size % max(1, data_size):
+                raise ValueError(
+                    f"batch_size {cfg.train.batch_size} not divisible by the mesh data axis "
+                    f"({data_size}) — required for multi-host training")
+            self.mesh = make_mesh(cfg.mesh)
+            self._local_rows = host_batch_rows(self.mesh, cfg.train.batch_size)
+        self._columns = shard_columns(cfg.model.num_spkrs, self.mesh)
         model = init_parameters(SpeakerClassifier(cfg.model),
                                 torch.Generator().manual_seed(cfg.train.seed))
-        self.model = model.to(self.device)
+        self.model = shard_model(model, self.mesh).to(self.device)
         self.optimizer = make_optimizer(cfg.train, self.model.parameters())
         # the learning rate is held as float32, as optax holds it
         with_lr(self.optimizer, float(np.float32(cfg.train.learning_rate)))
         self.train_step: TrainStep = make_train_step(cfg, self.model, self.optimizer,
-                                                     self.device)
+                                                     self.device, mesh=self.mesh)
         self._val_model: Optional[SpeakerClassifier] = None
         self._val_stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
 
@@ -151,6 +185,23 @@ class Trainer:
         """Optimizer steps taken (the JAX ``TrainState.step``)."""
         return self.train_step.step
 
+    def _pin_wav_mode(self, cfg: ExperimentConfig) -> ExperimentConfig:
+        """Every process takes process 0's auto wav-mode verdict, mode and
+        cache budget both: the mode decides the step's input and the budget
+        the cache demotion, and processes on unlike hosts must not
+        diverge."""
+        import dataclasses
+
+        from ..config import auto_wav_mode, pin_auto_wav_mode
+
+        modes = ("pcm", "host_dsp", "cache")
+        local_mode, local_mb, _ = auto_wav_mode()
+        decision = broadcast_np(np.asarray([modes.index(local_mode), local_mb], np.float64))
+        mode, cache_mb = modes[int(decision[0])], float(decision[1])
+        pin_auto_wav_mode(mode, cache_mb, f"coordinator broadcast: process 0 chose '{mode}' "
+                                          f"({cache_mb:.0f} MB cache budget)")
+        return dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, wav_mode=mode))
+
     # ------------------------------------------------------------------ data
     def _load_data(self) -> None:
         from ..utils.native import native_available
@@ -172,7 +223,11 @@ class Trainer:
             budget_mb = cfg.data.effective_train_cache_mb()
             est_mb = estimate_feature_working_set_mb(cfg.data.train_data_dir,
                                                      [u.path for u in manifest])
-            if est_mb > 1.2 * budget_mb:
+            demote = est_mb > 1.2 * budget_mb
+            if self.num_hosts > 1:
+                # the estimate stats each host's files: take process 0's verdict
+                demote = bool(broadcast_np(np.asarray([demote], np.int32))[0])
+            if demote:
                 mode = "wav_host_dsp"
                 reason = (f"auto cache demoted to host DSP: estimated feature "
                           f"working set {est_mb:.0f} MB vs {budget_mb:.0f} MB budget "
@@ -217,7 +272,9 @@ class Trainer:
                                          window_frames)
             is_wave = False
         self.loader = TrainLoader(manifest, source, cfg.train, cfg.data,
-                                  feature_dim=cfg.model.feature_size, is_wave=is_wave)
+                                  feature_dim=cfg.model.feature_size, is_wave=is_wave,
+                                  host_id=self.host_id, num_hosts=self.num_hosts,
+                                  local_rows=self._local_rows)
 
     def _native_reader(self):
         if not self.cfg.data.use_native_loader:
@@ -263,6 +320,16 @@ class Trainer:
         )
         clients = load_trials(cfg.data.valid_clients)
         impostors = load_trials(cfg.data.valid_impostors)
+        if self.num_hosts > 1 and cfg.train.shard_validation:
+            # each process embeds its shard; the gathered cache is the whole
+            # one, so every process computes the same EER (a collective:
+            # validation is serial across processes and runs at one step)
+            from ..evaluation.embeddings import sharded_extract
+
+            utts = [u for pair in (*clients, *impostors) for u in pair]
+            n_local = sharded_extract(extractor, utts, self.host_id, self.num_hosts)
+            self.log.log("validate_shard", n_total=len(set(utts)), n_local=n_local,
+                         n_embedded=extractor.n_embedded)
         result = validate_eer(extractor, clients, impostors)
         result["elapsed_s"] = time.time() - t0
         return result
@@ -308,8 +375,13 @@ class Trainer:
                    for n, st in opt.items()}
         return TrainSnapshot(self.model.state_dict(), opt, self.step, get_lr(self.optimizer))
 
+    def _async_validation_enabled(self) -> bool:
+        # across processes a second thread issuing collectives beside the
+        # training thread could order them differently on each process
+        return self.cfg.train.async_validation and self.num_hosts == 1
+
     def _on_validation(self) -> None:
-        if not self.cfg.train.async_validation:
+        if not self._async_validation_enabled():
             t_pause = time.time()
             result = self.validate()
             self._apply_validation(result, self._snapshot(clone=False), self.epoch)
@@ -366,7 +438,8 @@ class Trainer:
         os.makedirs(self.cfg.out_dir, exist_ok=True)
         stem = (f"{self.model_name}_best_{snap.step}" if kind == "best"
                 else f"{self.model_name}_{snap.step}")
-        path = os.path.join(self.cfg.out_dir, f"{stem}.npz")
+        dcp = self.cfg.train.checkpoint_backend == "orbax"
+        path = os.path.join(self.cfg.out_dir, stem + (".dcp" if dcp else ".npz"))
         meta = self._meta(snap, epoch)
         if kind == "best":
             # a resume from it must restore best_ckpt_path so pruning keeps
@@ -376,6 +449,17 @@ class Trainer:
         leaves = partial(train_state_to_jax, host.model_state, host.opt_state,
                          self.cfg.train.optimizer, host.step, host.lr)
         keep = self.cfg.train.keep_checkpoints
+        if dcp:
+            # every process writes its shards, synchronously: a collective
+            from ..utils.dist_ckpt import prune_dcp_checkpoints, save_checkpoint_dcp
+
+            save_checkpoint_dcp(path, leaves(), meta, columns=self._columns)
+            self.log.log("ckpt_save", kind=kind, backend="dcp", step=snap.step, mode="sync",
+                         blocked_s=round(time.perf_counter() - t0, 4))
+            if kind != "best" and keep > 0:
+                prune_dcp_checkpoints(self.cfg.out_dir, self.model_name, keep,
+                                      (self.best_ckpt_path,) if self.best_ckpt_path else ())
+            return path
         then = None
         if kind != "best" and keep > 0:
             protect = (self.best_ckpt_path,) if self.best_ckpt_path else ()
@@ -393,11 +477,25 @@ class Trainer:
         self._stop_reason = reason
         self._stop_requested = True
 
+    def _preempt_verdict(self, step: int) -> bool:
+        """Do the processes agree to stop at this step boundary? One
+        process: its own flag, every step. Several: only one may have been
+        signalled, so the verdict is the OR of every process's flag, agreed
+        every ``preempt_sync_every`` steps (every process calls it at every
+        step, so the agreement is reached at the same step everywhere)."""
+        if self.num_hosts == 1:
+            return self._stop_requested
+        every = self.cfg.train.preempt_sync_every
+        if every <= 0 or step % every:
+            return False
+        return bool(all_gather_np(np.asarray([int(self._stop_requested)], np.int32)).max() > 0)
+
     def _graceful_stop(self, step: int) -> None:
         """Join any validation in flight (a best save must land first), save
         a checkpoint AT the interrupt step and wait for it: the process exits
         right after, and --requeue must find it."""
-        self.log.log("preempt_stop", step=step, reason=self._stop_reason or "signal")
+        self.log.log("preempt_stop", step=step,
+                     reason=self._stop_reason or "peer-host signal")
         self._join_validation()
         path = self._save("periodic")
         self._checkpointer.wait()
@@ -408,15 +506,21 @@ class Trainer:
         """Requeue-style resume (reference ``train.py:31-49``): the newest
         checkpoint, or the one at optimizer ``step``. Reads either package's
         files."""
-        if step is None:
-            path = latest_checkpoint(self.cfg.out_dir)
+        dcp = self.cfg.train.checkpoint_backend == "orbax"
+        if step is not None:
+            path = self._find_step_checkpoint(step, ".dcp" if dcp else ".npz")
+        elif dcp:
+            from ..utils.dist_ckpt import latest_dcp_checkpoint
+
+            path = latest_dcp_checkpoint(self.cfg.out_dir)
         else:
-            path = self._find_step_checkpoint(step)
+            path = latest_checkpoint(self.cfg.out_dir)
         if path is None:
             return False
+        # the whole state; this model rank takes its columns of W
         flat, meta = load_checkpoint(path)
         self.train_step.step = load_train_state(flat, self.model, self.optimizer,
-                                                self.cfg.train.optimizer)
+                                                self.cfg.train.optimizer, self._columns)
         ckpt_epoch = int(meta.get("epoch", 0))
         self.best_eer = float(meta.get("best_eer", 50.0))
         self.stopping = int(meta.get("stopping", 0))
@@ -442,11 +546,11 @@ class Trainer:
                      in_epoch_skip=self._resume_skip_steps)
         return True
 
-    def _find_step_checkpoint(self, step: int) -> Optional[str]:
+    def _find_step_checkpoint(self, step: int, suffix: str = ".npz") -> Optional[str]:
         if not os.path.isdir(self.cfg.out_dir):
             return None
         for fname in sorted(os.listdir(self.cfg.out_dir)):
-            if fname.endswith(f"_{step}.npz") and fname.startswith(self.model_name):
+            if fname.endswith(f"_{step}{suffix}") and fname.startswith(self.model_name):
                 return os.path.join(self.cfg.out_dir, fname)
         return None
 
@@ -569,7 +673,9 @@ class Trainer:
                 if cfg.train.checkpoint_every and step % cfg.train.checkpoint_every == 0:
                     self._save("periodic")
 
-                if self._stop_requested:
+                # called at every step: across processes the verdict is an
+                # agreement that every process enters at the same step
+                if self._preempt_verdict(step):
                     self._graceful_stop(step)
                     break
 
@@ -599,7 +705,7 @@ class Trainer:
         opt = make_optimizer(self.cfg.train, model.parameters())
         # load_state_dict keeps the state's tensors: copy them first
         opt.load_state_dict(copy.deepcopy(self.optimizer.state_dict()))
-        bench = TrainStep(self.cfg, model, opt, self.device, torch.Generator())
+        bench = TrainStep(self.cfg, model, opt, self.device, torch.Generator(), self.mesh)
         bench.step = self.step
         bench(batch)  # warm
         n = max(1, n)

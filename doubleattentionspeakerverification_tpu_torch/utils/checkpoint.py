@@ -14,7 +14,8 @@ copies the state to the host first (the optimizer updates its tensors in
 place), and the leaves may be a function of that copy, run on the writer.
 ``latest_checkpoint`` picks the highest step in a file name (creation time
 breaks ties) and ``prune_checkpoints`` keeps the newest periodic files;
-best-EER files are never pruned.
+best-EER files are never pruned. ``load_checkpoint`` also reads the
+sharded ``.dcp`` directories of ``utils/dist_ckpt.py``.
 """
 
 from __future__ import annotations
@@ -31,7 +32,15 @@ import numpy as np
 
 
 def load_checkpoint(path: str) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
-    """-> (flat leaves keyed by path, meta)."""
+    """-> (flat leaves keyed by path, meta), from a ``.npz`` or a ``.dcp``
+    directory (``utils/dist_ckpt.py``); a JAX ``.orbax`` directory is
+    refused with the way across."""
+    from . import dist_ckpt
+
+    if dist_ckpt.is_orbax(path):
+        raise ValueError(dist_ckpt.ORBAX_REFUSAL.format(path=path))
+    if dist_ckpt.is_dcp(path):
+        return dist_ckpt.load_checkpoint_dcp(path)
     with np.load(path, allow_pickle=False) as z:
         if "__meta__" not in z.files:
             raise ValueError(f"{path} has no __meta__ entry; not a checkpoint of this format")

@@ -3,7 +3,10 @@
 ``params_from_jax`` reads the parameters; ``train_state_to_jax`` writes the
 model, the ``torch.optim`` state and the step counter as the flat leaves of
 the JAX package's ``TrainState`` (its ``.npz`` checkpoint keys), and
-``load_train_state`` reads those leaves into a model and an optimizer.
+``load_train_state`` reads those leaves into a model and an optimizer. A
+model rank's ``W`` and its moments are its columns of the whole state's
+(``slice_columns``); ``utils/dist_ckpt.py`` writes each rank's columns and
+joins them on reading, so npz and ``.dcp`` checkpoints convert losslessly.
 
 Layout rules (the JAX package's ``utils/torch_export.py:11-16``, kept here
 as the port's own copy): convolution kernels go HWIO -> OIHW, linear
@@ -14,7 +17,7 @@ the BatchNorm's weight/bias and buffers.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -129,13 +132,31 @@ def train_state_to_jax(model_state: Mapping[str, torch.Tensor],
     return flat
 
 
+def is_w_leaf(key: str) -> bool:
+    """A leaf of the AM-Softmax ``W`` or of one of its optimizer moments:
+    the leaves split by columns over the model ranks."""
+    return key.split("/")[-2:] == ["amsoftmax", "W"]
+
+
+def slice_columns(flat: Mapping[str, np.ndarray], lo: int, hi: int) -> Dict[str, np.ndarray]:
+    """``flat`` with ``W`` and its moments cut to columns [lo, hi): a model
+    rank's leaves from the whole state's."""
+    return {k: (np.ascontiguousarray(np.asarray(v)[:, lo:hi]) if is_w_leaf(k) else v)
+            for k, v in flat.items()}
+
+
 def load_train_state(flat: Mapping[str, np.ndarray], model: torch.nn.Module,
                      optimizer: Optional[torch.optim.Optimizer] = None,
-                     optimizer_name: str = "Adam") -> int:
+                     optimizer_name: str = "Adam",
+                     columns: Optional[Tuple[int, int]] = None) -> int:
     """Read the flat leaves of a JAX-format ``TrainState`` into ``model``
     and ``optimizer`` (in place, on their devices); returns the step. Adam's
     and RMSprop's moments take the parameters' layouts; the learning rate
-    is set from ``opt_state/hyperparams/learning_rate`` as float32."""
+    is set from ``opt_state/hyperparams/learning_rate`` as float32. With
+    ``columns`` the model holds only those columns of ``W`` (a model rank),
+    and ``W`` and its moments are cut to them."""
+    if columns is not None:
+        flat = slice_columns(flat, *columns)
     state = params_from_jax(dict(flat))
     missing = set(model.state_dict()) - set(state)
     if missing:

@@ -35,6 +35,7 @@ from doubleattentionspeakerverification_tpu_torch.dsp import features as pfeat
 from doubleattentionspeakerverification_tpu_torch.evaluation import embeddings as pemb
 from doubleattentionspeakerverification_tpu_torch.models.classifier import SpeakerClassifier
 from doubleattentionspeakerverification_tpu_torch.models.init import init_parameters
+from doubleattentionspeakerverification_tpu_torch.models.poolings import draw_head_keep
 from doubleattentionspeakerverification_tpu_torch.training import optimizers as popt
 from doubleattentionspeakerverification_tpu_torch.utils import checkpoint as pckpt
 from doubleattentionspeakerverification_tpu_torch.utils import native as pnative
@@ -226,8 +227,9 @@ def test_checkpoint_leaves_both_ways(optimizer, tmp_path):
     for _ in range(2):
         opt.zero_grad()
         x = torch.randn(3, 40, 80, generator=torch.Generator().manual_seed(4))
-        costh, logits = model.classify(x, torch.tensor([0, 1, 2]), 0,
-                                       generator=torch.Generator().manual_seed(1))
+        keep = draw_head_keep(3, model.cfg.heads_number, model.cfg.mask_prob,
+                              torch.Generator().manual_seed(1))
+        costh, logits = model.classify(x, torch.tensor([0, 1, 2]), 0, keep=keep)
         logits.sum().backward()
         for p in model.parameters():
             if p.grad is None:

@@ -455,7 +455,8 @@ def test_score_trials_refuses_orbax_with_exit_2():
     with contextlib.redirect_stderr(err):
         rc = pscore.main(["--modelCheckpoint", "run/m_1.orbax", "--data_dir", "d",
                           "--trials", "t.ndx", "--device", "cpu"])
-    assert rc == 2 and "Queue A item 7" in err.getvalue()
+    assert rc == 2 and "doubleattentionspeakerverification_tpu.cli.convert_checkpoint" \
+        in err.getvalue()
 
 
 def test_score_trials_reproduces_golden_scores(tmp_path):

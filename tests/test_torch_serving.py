@@ -276,14 +276,19 @@ def test_cli_builds_a_server_on_the_cpu():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every module of the port, serving included, imports without loading
-    jax or any module of the JAX package."""
+    """Every module of the port, serving and the multi-process modules
+    included, imports without loading jax or any module of the JAX
+    package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import doubleattentionspeakerverification_tpu_torch as port\n"
         "import doubleattentionspeakerverification_tpu_torch.serving\n"
-        "for m in pkgutil.walk_packages(port.__path__, port.__name__ + '.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + '.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "new = ['parallel.distributed', 'parallel.mesh', 'parallel.sharded_amsoftmax',\n"
+        "       'utils.dist_ckpt', 'cli.convert_checkpoint', 'tools.multihost_check']\n"
+        "assert all(port.__name__ + '.' + m in names for m in new), names\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib')\n"
         "       or (m + '.').startswith('doubleattentionspeakerverification_tpu.')]\n"
         "print(bad)\n"

@@ -321,7 +321,7 @@ def test_export_refuses_orbax_and_statistical_pooling(tmp_path):
     err = io.StringIO()
     with contextlib.redirect_stderr(err):
         assert pexport.main(["--checkpoint", "run/m_1.orbax", "--out", "x.chkpt"]) == 2
-    assert "Queue A item 7" in err.getvalue()
+    assert "doubleattentionspeakerverification_tpu.cli.convert_checkpoint" in err.getvalue()
     ckpt = str(tmp_path / "s.npz")
     _checkpoint(ckpt, _cfg("StatisticalPooling"))
     with pytest.raises(ValueError, match="StatisticalPooling"):

@@ -101,11 +101,11 @@ def test_head_dropout_matches_jax(mask_prob):
         evaluated = layer.eval()(torch.from_numpy(ctx)).numpy()
         np.testing.assert_allclose(got[row], evaluated[row], atol=1e-7)
         # mask_prob <= 0 and eval() turn the dropout off; train() without a
-        # mask or a generator refuses
+        # keep mask refuses
         off = HeadAttention(d_h, 0.0)
         off.att.copy_(layer.att)
         np.testing.assert_allclose(off(torch.from_numpy(ctx)).numpy(), evaluated, atol=0)
-        with pytest.raises(ValueError, match="generator"):
+        with pytest.raises(ValueError, match="keep mask"):
             layer.train()(torch.from_numpy(ctx))
     draws = draw_head_keep(4000, heads, mask_prob, torch.Generator().manual_seed(0))
     assert abs(float(draws.float().mean()) - (1 - 1 / int(1 / mask_prob))) < 0.02

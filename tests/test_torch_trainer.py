@@ -459,14 +459,21 @@ def test_resume_step(runs, tmp_path):
     assert [e["step"] for e in _events(_metrics_path(tmp_path), "train")] == [4]
 
 
-@pytest.mark.parametrize("flags", [
-    ["--distributed"], ["--coordinator_address", "localhost:1234"],
-    ["--checkpoint_backend", "orbax"], ["--model_parallel", "2"],
-    ["--profile_dir", "prof"], ["--tensorboard_dir", "tb"],
+@pytest.mark.parametrize("flags, message", [
+    (["--distributed"], "needs a coordinator"),
+    (["--coordinator_address", "localhost:1234"], "needs the process count"),
+    (["--distributed", "--num_processes", "2", "--process_id", "2",
+      "--coordinator_address", "localhost:1234"], "process id 2 outside 0..1"),
+    (["--coordinator_address", "localhost", "--num_processes", "2", "--process_id", "0"],
+     "give host:port"),
+    (["--profile_dir", "prof"], "Queue A item 8"), (["--tensorboard_dir", "tb"], "Queue A item 8"),
 ])
-def test_refused_flags_exit_nonzero(runs, tmp_path, flags, capsys):
-    assert pcli.main(_argv(runs["root"], tmp_path, "--device", "cpu", *flags)) != 0
-    assert "Queue A item" in capsys.readouterr().err
+def test_refused_flags_exit_nonzero(runs, tmp_path, flags, message, capsys):
+    """What the port does not carry out (ROADMAP Queue A item 8), and a
+    multi-process launch without its topology, exit 2 before anything is
+    written or any process is contacted."""
+    assert pcli.main(_argv(runs["root"], tmp_path, "--device", "cpu", *flags)) == 2
+    assert message in capsys.readouterr().err
     assert not os.listdir(tmp_path)
 
 
