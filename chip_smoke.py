@@ -82,8 +82,24 @@ validation wavs' pickles (B2 once a file) against B2's plain version;
 ``[alignments]`` holds the example checkpoint's attention weights, card
 against CPU; ``[export]`` turns the trainer's newest checkpoint into a
 reference ``.chkpt`` that embeds on the card as the ``.npz`` does. Each
-counts its kernels' launches from 0. Any failed phase exits non-zero. The
-last line is
+counts its kernels' launches from 0.
+
+The kernel dispatcher (``utils/kernel_auto.py``): ``[dispatch]`` resolves
+the paper config from scratch (B2 and B1 to their kernels behind their
+self-checks, whose launches are counted apart from the path's; each
+check's largest difference and time), shows a B2 made 5e-4 off failing
+its check with a raise, runs a 4 s upload with ``use_pallas_dsp=False``
+and ``use_pallas_pooling=False`` (no B1 or B2 launch; log-mel, B1's
+contexts and the embedding against the default path's) and prints the
+``int8_static`` gate's verdict with B3's and its plain version's times.
+``[train remat]`` takes [train]'s step with ``remat_vgg`` (step 1's
+gradients held to [train]'s by [train]'s measure; the median of three
+timed steps and the peak memory beside [train]'s). ``[profile]`` runs
+``cli/train.py`` for 4 steps on the [trainer] corpus with
+``--profile_dir`` (steps 2-3) and ``--tensorboard_dir``: the trace holds
+B1's and B2's kernels by symbol, the TensorBoard scalars equal the JSONL
+losses, and the window's ten kernels with the most device time are
+printed. Any failed phase exits non-zero. The last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": 1}}
 
@@ -93,6 +109,7 @@ Imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -142,6 +159,15 @@ TRAINER_SPEAKERS, TRAINER_UTTS, TRAINER_SECONDS = 32, 8, (3.5, 6.0)
 TRAINER_VALID, TRAINER_VALID_SECONDS = 16, (2.0, 12.0)
 TRAINER_STOP = 3
 TRAINER_BENCH = 4
+PROFILE_WINDOW = (2, 2)  # [profile]: trace steps 2 and 3 of a 4-step cli/train.py run
+PROFILE_GROUPS = (       # [profile]: kernel names by what they compute, first match wins
+    ("B1", ("mha_pool_kernel",)),
+    ("B2", ("logmel_kernel",)),
+    ("convolutions and matrix products (cuDNN, cuBLAS, FFT)",
+     ("xmma", "gemm", "cudnn", "fft", "fprop", "dgrad", "wgrad")),
+    ("max-pool", ("max_pool",)),
+    ("elementwise and reductions (ATen)", ("at::native",)),
+)
 TOL_TRAINER_RESUME = 1e-5
 # [distributed]: two ranks share the card over gloo. The step at paper width
 # is held to one process's as [train] holds card vs CPU; the CLI runs' losses
@@ -835,7 +861,22 @@ def phase_train():
           f"loss {out_k['loss']:.6f} (plain pooling {out_p['loss']:.6f}), accuracy "
           f"{out_k['accuracy']:.4f}; {launched_k} B1 launches; every parameter has a finite, "
           f"nonzero gradient; gradients within {kp:.3g} of their scale of the plain pooling's")
-    del grads_k, grads_p
+    del grads_p
+
+    # the same step 1 with remat_vgg, held to the kernel path's by the same measure
+    remat = cfg.replace(model=dataclasses.replace(m, remat_vgg=True))
+    torch.backends.cudnn.deterministic = True
+    try:
+        out_r, grads_r, launched_r = train_run(remat, state0, batch, keep, DEVICE)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    check(launched_r == g, f"[train remat] B1 launches {launched_r}")
+    check(abs(out_r["loss"] - out_k["loss"]) <= TOL_POOL * max(1.0, abs(out_k["loss"])),
+          f"[train remat] loss {out_r['loss']} vs [train]'s {out_k['loss']}")
+    kr, _ = compare_grads(grads_r, grads_k, "step 1 with remat_vgg vs without", tag="[train remat]")
+    print(f"[train remat] step 1: loss {out_r['loss']:.6f} ([train] {out_k['loss']:.6f}); "
+          f"gradients within {kr:.3g} of their scale of [train]'s (tol {TOL_TRAIN_GRAD})")
+    del grads_k, grads_r
 
     # one small step, card against CPU, on the same CPU-made features
     small = train_batch(np.random.default_rng(11), cfg, 1, TRAIN_SMALL[0], TRAIN_SMALL[1], ragged=())
@@ -869,38 +910,48 @@ def phase_train():
     print(f"[train] the step's convolutions: {conv_ops / 1e12:.2f} TFLOP forward and backward, "
           f"{conv_ops / FP32_OPS_PER_S * 1e3:.1f} ms at the float32 peak")
 
-    # the main path: TRAIN_STEPS steps, kernel counts read from 0
-    model = SpeakerClassifier(m)
-    model.load_state_dict(state0)
-    step = make_train_step(cfg, model, make_optimizer(t, model.parameters()), DEVICE)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for k in ops.KERNELS:
-        k.launches = 0
-    times, losses = [], []
-    for _ in range(TRAIN_STEPS):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = step(batch)
-        end.record()
+    # the main path: TRAIN_STEPS steps, kernel counts read from 0; then the
+    # same with remat_vgg
+    timed = {}
+    for tag, c in (("[train]", cfg), ("[train remat]", remat)):
+        model = SpeakerClassifier(c.model)
+        model.load_state_dict(state0)
+        step = make_train_step(c, model, make_optimizer(t, model.parameters()), DEVICE)
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-        losses.append(float(out["loss"]))
-        for n, p in model.named_parameters():
-            check(p.grad is not None and bool(torch.isfinite(p.grad).all()),
-                  f"[train] step {step.step}: gradient of {n} missing or not finite")
-    launches = {k.name: k.launches for k in ops.KERNELS}
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    check(all(math.isfinite(x) for x in losses), f"[train] losses {losses}")
-    for name in ("mha_pool", "logmel"):
-        check(launches[name] > 0, f"kernel {name} was never launched on the [train] path")
-    print(f"[train] kernel launches in {TRAIN_STEPS} steps: {json.dumps(launches)}")
-    print(f"[train] {TRAIN_STEPS} steps of G={g} x B={b} x {t.window_size} s windows (wav mode, "
-          f"int16 PCM; Adam lr {t.learning_rate}, weight decay {t.weight_decay}): losses "
-          + ", ".join(f"{x:.6f}" for x in losses) + f"; step times "
-          + ", ".join(f"{x:.1f}" for x in times) + f" ms (CUDA events), median "
-          f"{float(np.median(times)):.1f} ms; peak torch.cuda.max_memory_allocated = "
-          f"{peak_gib:.2f} GiB")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for k in ops.KERNELS:
+            k.launches = 0
+        times, losses = [], []
+        for _ in range(TRAIN_STEPS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step(batch)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+            losses.append(float(out["loss"]))
+            for n, p in model.named_parameters():
+                check(p.grad is not None and bool(torch.isfinite(p.grad).all()),
+                      f"{tag} step {step.step}: gradient of {n} missing or not finite")
+        launches = {k.name: k.launches for k in ops.KERNELS}
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        del model, step
+        check(all(math.isfinite(x) for x in losses), f"{tag} losses {losses}")
+        for name in ("mha_pool", "logmel"):
+            check(launches[name] > 0, f"kernel {name} was never launched on the {tag} path")
+        timed[tag] = (float(np.median(times)), peak_gib, launches)
+        print(f"{tag} kernel launches in {TRAIN_STEPS} steps: {json.dumps(launches)}")
+        print(f"{tag} {TRAIN_STEPS} steps of G={g} x B={b} x {t.window_size} s windows (wav "
+              f"mode, int16 PCM; Adam lr {t.learning_rate}, weight decay {t.weight_decay}): "
+              "losses " + ", ".join(f"{x:.6f}" for x in losses) + f"; step times "
+              + ", ".join(f"{x:.1f}" for x in times) + f" ms (CUDA events), median "
+              f"{float(np.median(times)):.1f} ms; peak torch.cuda.max_memory_allocated = "
+              f"{peak_gib:.2f} GiB")
+    (ms0, peak0, launches), (ms1, peak1, _) = timed["[train]"], timed["[train remat]"]
+    print(f"[train remat] median step {ms1:.1f} ms against [train]'s {ms0:.1f} ms "
+          f"({ms1 / ms0 - 1:+.1%}); peak {peak1:.2f} GiB against {peak0:.2f} GiB "
+          f"({peak1 / peak0 - 1:+.1%})")
     return launches
 
 
@@ -1804,7 +1855,7 @@ def check_int8_served(model, calib, uploads, embs, tag):
     check(card == cpu, f"{tag} paper-width scales differ between the card and the CPU: "
           f"{card} vs {cpu}")
 
-    def plain_b3(q, w9, mult, bias, out_kind="int8", w_packed=None):
+    def plain_b3(q, w9, mult, bias, out_kind="int8", w_packed=None, use_kernel=True):
         return conv_int8.conv3x3_int8_plain(q, w9, mult, bias, out_kind)
 
     before, b3 = conv_int8.KERNEL.launches, quantized.conv3x3_int8
@@ -2349,6 +2400,168 @@ def phase_export(root):
           f"(tol {TOL_EXPORT})")
 
 
+def phase_dispatch(cfg, smi):
+    """The kernel dispatcher on the card: the paper config resolved from
+    scratch (B2 and B1 behind their self-checks, whose launches are counted
+    apart), a failing self-check raising, explicit False taking the plain
+    versions with no launch, and the int8_static gate's verdict."""
+    import torch
+
+    from doubleattentionspeakerverification_tpu_torch import ops
+    from doubleattentionspeakerverification_tpu_torch.api import SpeakerEmbeddingModel
+    from doubleattentionspeakerverification_tpu_torch.ops import logmel as logmel_ops
+    from doubleattentionspeakerverification_tpu_torch.utils import kernel_auto
+
+    kernel_auto._GATE_CACHE.clear()
+    kernel_auto._DECISIONS.clear()
+    before = {k.name: k.check_launches for k in ops.KERNELS}
+    count_reset()
+    r = kernel_auto.resolve_model_kernels(cfg.model, cfg.features, device=DEVICE)
+    checked = {k.name: k.check_launches - before[k.name] for k in ops.KERNELS}
+    check(r.use_pallas_dsp is True and r.use_pallas_pooling is True,
+          f"[dispatch] auto resolved to {r.use_pallas_dsp}, {r.use_pallas_pooling}")
+    check(not any(counts().values()), f"[dispatch] the self-checks moved the counts {counts()}")
+    check(checked["logmel"] == 1 and checked["mha_pool"] == 1,
+          f"[dispatch] self-check launches counted apart: {checked}")
+    print(f"[dispatch] the paper config resolved on the card: {json.dumps(kernel_auto.decisions())}")
+    for key, (diff, ms) in kernel_auto._GATE_CACHE.items():
+        print(f"[dispatch] self-check {key[0]}: largest |kernel - plain| {diff:.3g}, {ms:.1f} ms "
+              f"(launches counted apart: {json.dumps(checked)}; path counts still 0)")
+
+    # a B2 off by 5e-4 fails its check: resolution raises, nothing falls back
+    real = logmel_ops.log_mel_spectrogram_fused
+    logmel_ops.log_mel_spectrogram_fused = (
+        lambda w, c, use_kernel=True: real(w, c, use_kernel) + (5e-4 if use_kernel else 0.0))
+    kernel_auto._GATE_CACHE.clear()
+    try:
+        kernel_auto.resolve_model_kernels(cfg.model, cfg.features, device=DEVICE)
+        raised = "nothing"
+    except RuntimeError as e:
+        raised = str(e)
+    finally:
+        logmel_ops.log_mel_spectrogram_fused = real
+    check(raised.startswith("kernel B2 (logmel) self-check FAILED"),
+          f"[dispatch] a B2 off by 5e-4 raised {raised!r}")
+    print(f"[dispatch] B2 made 5e-4 off: resolution raised RuntimeError({raised!r})")
+
+    # explicit False: the plain versions, no launch, the same embedding
+    plain = cfg.replace(model=dataclasses.replace(cfg.model, use_pallas_dsp=False,
+                                                  use_pallas_pooling=False))
+    wave = seeded_speech(np.random.default_rng(31), 4.0)
+    runs = {}
+    for name, c in (("default", cfg), ("plain", plain)):
+        api = SpeakerEmbeddingModel.from_random_init(c, seed=0, device=DEVICE)
+        count_reset()
+        feats = api.features_of_wave(wave)
+        emb = api.embed_features(feats)
+        launched = counts()
+        ctx = []
+        hook = api.model.pooling.mha.register_forward_hook(lambda m, i, o: ctx.append(o))
+        ref_feats = runs["default"][0] if runs else feats
+        with torch.no_grad():
+            api.model(ref_feats[None].to(DEVICE))
+        hook.remove()
+        runs[name] = (feats, emb, launched, ctx[0].cpu())
+        del api
+    (f_d, e_d, l_d, c_d), (f_p, e_p, l_p, c_p) = runs["default"], runs["plain"]
+    check(l_d["mha_pool"] == 1 and l_d["logmel"] == 1, f"[dispatch] default path launches {l_d}")
+    check(l_p["mha_pool"] == 0 and l_p["logmel"] == 0, f"[dispatch] plain path launches {l_p}")
+    d_feat = float((f_d - f_p).abs().max())
+    d_ctx = float((c_d - c_p).abs().max()) / float(c_p.abs().max())
+    d_emb = float(np.abs(e_d - e_p).max())
+    check(d_feat <= TOL_LOGMEL and d_ctx <= TOL_POOL and d_emb <= TOL_EMBED,
+          f"[dispatch] explicit False vs default: log-mel {d_feat:.3g}, contexts {d_ctx:.3g}, "
+          f"embedding {d_emb:.3g}")
+    print(f"[dispatch] use_pallas_dsp=False, use_pallas_pooling=False on a 4 s upload: launches "
+          f"{json.dumps(l_p)} (default {json.dumps(l_d)}); decisions "
+          f"{json.dumps(kernel_auto.decisions())}; log-mel within {d_feat:.3g} (tol {TOL_LOGMEL}), "
+          f"B1's contexts on the same features within {d_ctx:.3g} of their largest (tol "
+          f"{TOL_POOL}), embedding within {d_emb:.3g} (tol {TOL_EMBED}) of the default path's")
+
+    # the int8_static gate on its calibration upload
+    kernel_auto._DECISIONS.pop("int8_pallas_conv", None)
+    api = SpeakerEmbeddingModel.from_random_init(cfg, seed=0, device=DEVICE,
+                                                 quantize="int8_static")
+    state = api.calibrate_quantization(api.features_of_wave(seeded_speech(
+        np.random.default_rng(32), 6.0)))
+    verdict = kernel_auto.decisions().get("int8_pallas_conv", "")
+    check(state == "static" and verdict.startswith("auto->True (B3 "),
+          f"[dispatch] int8_static calibration {state}, gate {verdict!r}")
+    print(f"[dispatch] int8_static gate on its 6 s calibration upload: {verdict}; on {smi}")
+
+
+def profile_kernels(trace_path):
+    """(total ms by kernel name, the kernels' busy ms and their span in ms)
+    from a Chrome trace's device kernel events."""
+    with open(trace_path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("cat") == "kernel" and "dur" in e]
+    by_name = {}
+    for e in events:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"] / 1e3
+    busy, end = 0.0, None
+    for start, dur in sorted((e["ts"], e["dur"]) for e in events):
+        stop = start + dur
+        if end is None or start >= end:
+            busy += dur
+            end = stop
+        elif stop > end:
+            busy += stop - end
+            end = stop
+    span = (max(e["ts"] + e["dur"] for e in events) - min(e["ts"] for e in events)
+            if events else 0.0)
+    return by_name, busy / 1e3, span / 1e3
+
+
+def phase_profile(root, smi):
+    """``cli/train.py`` with ``--profile_dir`` (steps 2-3 of 4) and
+    ``--tensorboard_dir`` on the [trainer] corpus: the trace holds B1's and
+    B2's kernels, the scalars read back equal the JSONL losses; prints the
+    window's kernels by total time."""
+    from doubleattentionspeakerverification_tpu_torch.utils.tensorboard import read_scalars
+
+    out, prof, tb = (os.path.join(root, d) for d in ("profile", "profile_trace", "profile_tb"))
+    t0 = time.perf_counter()
+    trainer_cli(trainer_argv(root, out, "--validate_every", "0", "--checkpoint_every", "0",
+                             "--profile_dir", prof, "--profile_start_step",
+                             str(PROFILE_WINDOW[0]), "--profile_steps", str(PROFILE_WINDOW[1]),
+                             "--tensorboard_dir", tb), os.path.join(root, "console.log"))
+    wall = time.perf_counter() - t0
+    events = trainer_events(out)
+    marks = [(e["event"], int(e["step"])) for e in events if e["event"].startswith("profile_")]
+    stop = PROFILE_WINDOW[0] + PROFILE_WINDOW[1]
+    check(marks == [("profile_started", PROFILE_WINDOW[0]), ("profile_stopped", stop)],
+          f"[profile] profile events {marks}")
+    (trace,) = [os.path.join(prof, f) for f in os.listdir(prof) if f.endswith(".pt.trace.json")]
+    by_name, busy_ms, span_ms = profile_kernels(trace)
+    for sym in ("mha_pool_kernel", "logmel_kernel"):
+        check(any(sym in n for n in by_name), f"[profile] no {sym} in the trace's kernels")
+    (tb_file,) = [os.path.join(tb, f) for f in os.listdir(tb) if f.startswith("events.out.")]
+    scalars = {(step, tag): v for (_, step, tag, v) in read_scalars(tb_file)}
+    train = [e for e in events if e["event"] == "train"]
+    check(len(train) == 4 and all(scalars.get((int(e["step"]), "train/xent"))
+                                  == np.float32(e["xent"]) for e in train),
+          f"[profile] TensorBoard train/xent {sorted(scalars.items())[:8]} vs JSONL "
+          f"{[e['xent'] for e in train]}")
+    total = max(sum(by_name.values()), 1e-9)
+    n = PROFILE_WINDOW[1]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    print(f"[profile] steps {PROFILE_WINDOW[0]}-{stop - 1} of the paper recipe traced "
+          f"(torch.profiler, CUPTI): {len(by_name)} kernel names, {total:.1f} ms of kernel time "
+          f"({total / n:.1f} ms a step), device busy {busy_ms:.1f} ms of the kernels' "
+          f"{span_ms:.1f} ms span (idle share {1 - busy_ms / max(span_ms, 1e-9):.1%}); run wall "
+          f"{wall:.1f} s; TensorBoard train/xent equal to the JSONL at steps 1-4; on {smi}")
+    for name, ms in top:
+        print(f"[profile]   {ms / n:9.3f} ms a step  {100 * ms / total:5.1f}%  {name[:150]}")
+    split = {}
+    for name, ms in by_name.items():
+        group = next((g for g, keys in PROFILE_GROUPS if any(k in name for k in keys)), "other")
+        split[group] = split.get(group, 0.0) + ms
+    print("[profile] split a step: " + "; ".join(
+        f"{g} {split.get(g, 0.0) / n:.4f} ms ({100 * split.get(g, 0.0) / total:.2f}%)"
+        for g in [g for g, _ in PROFILE_GROUPS] + ["other"]))
+
+
 def main() -> int:
     import torch
 
@@ -2390,10 +2603,12 @@ def main() -> int:
               f"to the float32 server's < {COSINE_GUARD}")
         print(f"[forward] B=8 x 10 s: float32 {fp_ms:.3f} ms, int8_static {q_ms:.3f} ms "
               f"({fp_ms / q_ms:.2f}x) device time on {smi}")
+        phase_dispatch(cfg, smi)
         train_launches = phase_train()
         root = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
         try:
             phase_trainer(root, smi)
+            phase_profile(root, smi)
             dist_launches = phase_distributed(root, smi)
             phase_score_trials(root, smi)
             example_wavs = phase_score_trials_example(root)

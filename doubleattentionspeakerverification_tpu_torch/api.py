@@ -8,8 +8,11 @@
     same = model.verify("a.wav", "b.wav", threshold=0.5)
 
 Runs on the card unless ``device="cpu"`` is given; asking for CUDA where
-there is none raises. ``quantize="int8"`` or ``"int8_static"`` serves the
-int8 encoder (``models/quantized.py``; kernel B3 on the card):
+there is none raises. The config's tri-state kernel flags are resolved for
+the device at construction (``utils/kernel_auto.py``): B2 for uploads, B1 in
+the pooling, each behind a one-time self-check unless set explicitly.
+``quantize="int8"`` or ``"int8_static"`` serves the int8 encoder
+(``models/quantized.py``; kernel B3 on the card):
 
     model = SpeakerEmbeddingModel.from_checkpoint(path, quantize="int8_static")
     model.calibrate_quantization_wav("calibration.wav")   # else the first real batch
@@ -32,6 +35,7 @@ from .models.init import init_parameters
 from .models.quantized import make_int8_embed_fn
 from .utils.checkpoint import load_checkpoint
 from .utils.device import resolve_device
+from .utils.kernel_auto import resolve_model_kernels, route_model
 from .utils.torch_import import load_torch_checkpoint
 from .utils.weights import params_from_jax
 
@@ -64,7 +68,9 @@ class SpeakerEmbeddingModel:
         if quantize not in QUANTIZE_MODES:
             raise ValueError(f"unknown quantize mode {quantize!r}; use one of {QUANTIZE_MODES}")
         self.device = resolve_device(device)
-        self.model = model.to(self.device).eval()
+        kernels = resolve_model_kernels(cfg.model, cfg.features, device=self.device)
+        self._dsp_kernel = kernels.use_pallas_dsp
+        self.model = route_model(model.to(self.device).eval(), kernels)
         self.cfg = cfg
         self.normalization = normalization
         self.quantize = quantize
@@ -178,7 +184,8 @@ class SpeakerEmbeddingModel:
             w = wave.to(self.device, torch.float32)
         else:
             w = torch.from_numpy(np.asarray(wave, np.float32)).to(self.device)
-        return extract_normalized(w, self.features_cfg_for_rate(sample_rate), self.normalization)
+        return extract_normalized(w, self.features_cfg_for_rate(sample_rate), self.normalization,
+                                  self._dsp_kernel)
 
     def embed_wave(self, wave: ArrayLike, sample_rate: int = 16000) -> np.ndarray:
         return self.embed_features(self.features_of_wave(wave, sample_rate))

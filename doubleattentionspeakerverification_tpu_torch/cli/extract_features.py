@@ -11,11 +11,15 @@ host:
   python -m doubleattentionspeakerverification_tpu_torch.cli.extract_features \\
       -i wavs.txt [--device cpu | --host_dsp]
 
-The log-mel is ``center=False``, so a file's features do not depend on any
-padding after its last sample: ``--bucket_seconds`` (the JAX package's
-padding grid, one XLA compilation per bucket) and ``--use_pallas_dsp`` are
-accepted and have no effect here. A path ending in ``.wav`` loses that
-extension for the pickle's name; any other keeps its whole name.
+``--use_pallas_dsp`` / ``--no-use_pallas_dsp`` choose B2 or its plain
+version on the card; without either, the kernel dispatcher runs B2 behind
+its self-check (``utils/kernel_auto.py``; the JAX flag's store-true form is
+kept, and its default is auto rather than the XLA path). The log-mel is
+``center=False``, so a file's features do not depend on any padding after
+its last sample: ``--bucket_seconds`` (the JAX package's padding grid, one
+XLA compilation per bucket) is accepted and has no effect here. A path
+ending in ``.wav`` loses that extension for the pickle's name; any other
+keeps its whole name.
 """
 
 from __future__ import annotations
@@ -52,9 +56,11 @@ def main(argv=None) -> int:
     parser.add_argument("--bucket_seconds", type=float, default=2.0,
                         help="accepted for the JAX package's command lines; no "
                              "effect (nothing is compiled per length here)")
-    parser.add_argument("--use_pallas_dsp", action="store_true",
-                        help="accepted for the JAX package's command lines; no "
-                             "effect (on the card the log-mel is always kernel B2)")
+    parser.add_argument("--use_pallas_dsp", action=argparse.BooleanOptionalAction,
+                        default=None,
+                        help="on the card: kernel B2 (--use_pallas_dsp), its plain "
+                             "version (--no-use_pallas_dsp), or by default B2 behind "
+                             "a one-time self-check")
     parser.add_argument("--host_dsp", action="store_true",
                         help="native C++ log-mel kernel on the host: no card "
                              "needed (raises if the library cannot be built)")
@@ -69,8 +75,11 @@ def main(argv=None) -> int:
         extractor = NativeLogmel(cfg).compute
     else:
         from ..utils.device import resolve_device
+        from ..utils.kernel_auto import resolve_dsp
 
-        extractor = make_device_logmel(cfg, resolve_device(params.device))
+        device = resolve_device(params.device)
+        extractor = make_device_logmel(cfg, device,
+                                       resolve_dsp(params.use_pallas_dsp, cfg, device=device))
     with open(params.audioFilesList, "r") as files:
         for line in files:
             path = line.strip()

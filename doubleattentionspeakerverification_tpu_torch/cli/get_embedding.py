@@ -9,7 +9,8 @@ features from a wav and prints the scoring embedding, on the GPU unless
       --audioPath a.wav --modelCheckpoint models/run1/..._best_1234.npz
 
 The checkpoint's embedded config wins, and normalization is CMN unless
-overridden, as in the reference.
+overridden, as in the reference. Its kernel flags are resolved for the
+device by ``api.py`` (``utils/kernel_auto.py``).
 """
 
 from __future__ import annotations

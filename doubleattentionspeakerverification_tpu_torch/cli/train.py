@@ -7,10 +7,13 @@ written to ``{out_dir}/{model_name}_config.json`` and the events to
 graceful stop (a checkpoint at the next step boundary, exit 0; ``--requeue``
 continues from it), SIGUSR1 dumps every thread's stack.
 
-``--use_pallas_dsp`` / ``--use_pallas_pooling`` are accepted for flag
-compatibility and have no effect: on CUDA tensors the port always runs
-kernels B2 and B1 (a kernel dispatcher is ROADMAP Queue A item 8). The
-profiler window and TensorBoard (item 8) exit non-zero.
+``--use_pallas_dsp`` / ``--use_pallas_pooling`` choose kernels B2 and B1
+(``--no-...``: their plain versions) on the card; without them the kernel
+dispatcher runs each behind a one-time self-check (``utils/kernel_auto.py``).
+``--profile_dir`` traces steps ``[--profile_start_step, +
+--profile_steps)`` with ``torch.profiler`` (``utils/profiling.py``);
+``--tensorboard_dir`` writes every logged number as a TensorBoard scalar
+(``utils/tensorboard.py``).
 
 Multi-process training (``--distributed``; implied by
 ``--coordinator_address`` or ``JAX_COORDINATOR_ADDRESS``): every process
@@ -201,12 +204,14 @@ def make_parser() -> argparse.ArgumentParser:
                              "'pcm' / 'host_dsp' / 'cache'")
     parser.add_argument("--use_pallas_dsp", action=argparse.BooleanOptionalAction,
                         default=None,
-                        help="accepted for flag compatibility; no effect (on the card "
-                        "the log-mel is always kernel B2)")
+                        help="on the card: the log-mel as kernel B2 (--use_pallas_dsp) or "
+                        "its plain version (--no-use_pallas_dsp); default: B2 behind a "
+                        "one-time self-check")
     parser.add_argument("--use_pallas_pooling", action=argparse.BooleanOptionalAction,
                         default=None,
-                        help="accepted for flag compatibility; no effect (on the card "
-                        "the MHA pooling is always kernel B1)")
+                        help="on the card: the MHA pooling as kernel B1 or its plain "
+                        "version (--no-use_pallas_pooling); default: B1 behind a "
+                        "one-time self-check")
     parser.add_argument("--classifier_chunk", type=int, default=0,
                         help=">0: scan the AM-Softmax W in class chunks of this size "
                              "(memory-bounded CE for very large speaker counts)")
@@ -245,11 +250,11 @@ def make_parser() -> argparse.ArgumentParser:
                         help="host->device batch payload dtype (bfloat16 for "
                              "features / int16 for wavs halves transfer bytes)")
     parser.add_argument("--tensorboard_dir", type=str, default="",
-                        help="not ported (ROADMAP Queue A item 8): a non-empty "
-                             "value exits non-zero")
+                        help="also write metrics as TensorBoard scalar event "
+                             "files here (dependency-free writer)")
     parser.add_argument("--profile_dir", type=str, default="",
-                        help="not ported (ROADMAP Queue A item 8): a non-empty "
-                             "value exits non-zero")
+                        help="write a torch.profiler trace (Chrome/Perfetto "
+                             "JSON) of a window of training steps here")
     parser.add_argument("--profile_start_step", type=int, default=10,
                         help="first optimizer step of the trace window "
                              "(default 10: past compile + warmup)")
@@ -300,16 +305,6 @@ def make_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def refused_flags(params: argparse.Namespace):
-    """The flags the port does not carry out that the config does not hold,
-    each with its ROADMAP item (``refuse_unported`` covers the config's)."""
-    out = []
-    if params.tensorboard_dir:
-        out.append("--tensorboard_dir: the TensorBoard sink is not ported "
-                   "(ROADMAP Queue A item 8)")
-    return out
-
-
 def main(argv=None) -> int:
     # SIGUSR1 dumps all thread stacks to stderr (pairs with the stall
     # watchdog: a hung run can be inspected without killing it)
@@ -323,13 +318,12 @@ def main(argv=None) -> int:
         pass
 
     params = make_parser().parse_args(argv)
-    refused = refused_flags(params)
-    if not refused:
-        cfg = build_config(params)
-        try:
-            refuse_unported(cfg)
-        except ValueError as e:
-            refused.append(str(e))
+    refused = []
+    cfg = build_config(params)
+    try:
+        refuse_unported(cfg)
+    except ValueError as e:
+        refused.append(str(e))
     # several processes: join them before the trainer's first device use
     host_id, device = 0, params.device
     if not refused and (params.distributed or params.coordinator_address
@@ -356,7 +350,8 @@ def main(argv=None) -> int:
     # one console and JSONL stream a run: the other processes train the same
     # global step and would repeat every event
     quiet = None if host_id == 0 else open(os.devnull, "w")
-    logger = (MetricLogger(jsonl_path=os.path.join(cfg.out_dir, f"{name}_metrics.jsonl"))
+    logger = (MetricLogger(jsonl_path=os.path.join(cfg.out_dir, f"{name}_metrics.jsonl"),
+                           tensorboard_dir=params.tensorboard_dir or None)
               if quiet is None else MetricLogger(stream=quiet))
     # SIGTERM (a scheduler's preemption notice) asks for a checkpoint at the
     # next step boundary and a clean exit; installed before construction so

@@ -6,12 +6,14 @@ The same frozen dataclasses, field names and defaults (reference
 a config JSON or a checkpoint's embedded config written by either package
 loads in the other field for field. ``from_dict`` skips unknown keys.
 
-Fields that name TPU machinery are kept for that round trip and have no
-effect here: ``use_pallas_pooling`` / ``use_pallas_dsp`` (on CUDA tensors
-the port always runs kernels B1 and B2) and ``remat_vgg``.
-``checkpoint_backend = "orbax"`` selects the port's sharded ``.dcp``
-checkpoints (``utils/dist_ckpt.py``). The trainer refuses a
-``profile_dir``.
+Fields that name TPU machinery keep their names and take the port's
+meaning: ``use_pallas_pooling`` / ``use_pallas_dsp`` are the tri-state
+choices of kernels B1 and B2 on the card (``utils/kernel_auto.py``; None =
+auto behind a self-check, resolved where a model is run, so a config keeps
+None), ``remat_vgg`` recomputes each VGG block in the backward
+(``models/vgg.py``), ``checkpoint_backend = "orbax"`` selects the port's
+sharded ``.dcp`` checkpoints (``utils/dist_ckpt.py``), and ``profile_dir``
+traces a window of steps with ``torch.profiler`` (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -71,9 +73,10 @@ class ModelConfig:
     annealing: bool = False
     # Numerics
     compute_dtype: str = "float32"        # 'float32' | 'bfloat16' for conv/matmul compute
-    # The JAX package's Pallas switches and its jax.checkpoint of the VGG
-    # blocks: kept for the config round trip, no effect here (B1 and B2 run
-    # on every CUDA tensor; the plain versions on the CPU).
+    # B1's and B2's switches (utils/kernel_auto.py; None = auto behind a
+    # self-check on the card, resolved where a model is run, so checkpoints
+    # keep the tri-state) and the recomputation of each VGG block in the
+    # backward (models/vgg.py).
     use_pallas_pooling: Optional[bool] = None
     remat_vgg: bool = False
     use_pallas_dsp: Optional[bool] = None
@@ -163,8 +166,8 @@ class TrainConfig:
     # Batches copied ahead to the device from pinned host memory on a side
     # CUDA stream (training/device_prefetch.py); 0 = a plain copy per step.
     device_prefetch: int = 0
-    # The JAX package's jax.profiler window: a non-empty profile_dir is
-    # refused by the port's trainer.
+    # A torch.profiler trace of steps [profile_start_step, + profile_steps)
+    # under profile_dir (utils/profiling.py); empty = off.
     profile_dir: str = ""
     profile_start_step: int = 10
     profile_steps: int = 5

@@ -106,3 +106,10 @@ def encode_wav(samples: np.ndarray, sample_rate: int) -> bytes:
     hdr += b"fmt " + struct.pack("<IHHIIHH", 16, 1, 1, sample_rate, sample_rate * 2, 2, 16)
     hdr += b"data" + struct.pack("<I", len(pcm))
     return hdr + pcm
+
+
+def write_wav(path: str, samples: np.ndarray, sample_rate: int) -> None:
+    """Write mono PCM16 (for tests and synthetic data), as the JAX package's
+    ``write_wav``."""
+    with open(path, "wb") as f:
+        f.write(encode_wav(samples, sample_rate))

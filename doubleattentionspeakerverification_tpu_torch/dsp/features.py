@@ -129,13 +129,15 @@ def normalize_features(
     return torch.where(mask, out, 0.0)
 
 
-def extract_normalized(wave: torch.Tensor, cfg: FeatureConfig, mode: str = "cmn") -> torch.Tensor:
+def extract_normalized(wave: torch.Tensor, cfg: FeatureConfig, mode: str = "cmn",
+                       use_kernel: bool = True) -> torch.Tensor:
     """Wave (N,) -> CMN'd (T, n_mels) on the wave's device, the inference
     combination of ``featureExtractor.extractFeatures`` (``:25-33``). On the
-    card the log-mel runs in the hand-written kernel (``ops/logmel.py``)."""
+    card the log-mel runs in the hand-written kernel (``ops/logmel.py``)
+    unless ``use_kernel`` is False."""
     from ..ops.logmel import log_mel_spectrogram_fused
 
-    return normalize_features(log_mel_spectrogram_fused(wave, cfg), mode)
+    return normalize_features(log_mel_spectrogram_fused(wave, cfg, use_kernel), mode)
 
 
 def log_mel_spectrogram_np(wave: np.ndarray, cfg: FeatureConfig) -> np.ndarray:
@@ -159,10 +161,11 @@ def log_mel_spectrogram_np(wave: np.ndarray, cfg: FeatureConfig) -> np.ndarray:
     return np.log(np.maximum(cfg.log_floor, melspec)).astype(np.float32)
 
 
-def make_device_logmel(cfg: FeatureConfig, device="cuda"):
+def make_device_logmel(cfg: FeatureConfig, device="cuda", use_kernel: bool = True):
     """Host-callable ``wave (N,) float32 -> raw (T, n_mels) np.ndarray`` with
     the log-mel on ``device``: kernel B2 on the card, its plain version on
-    the CPU. The counterpart of the JAX package's ``make_bucketed_logmel``;
+    the CPU or where ``use_kernel`` is False. The counterpart of the JAX
+    package's ``make_bucketed_logmel`` (``use_kernel`` its ``use_pallas``);
     nothing is compiled per length, so the wave is not padded to a grid."""
     from ..ops.logmel import log_mel_spectrogram_fused
 
@@ -173,6 +176,6 @@ def make_device_logmel(cfg: FeatureConfig, device="cuda"):
         w = torch.from_numpy(np.ascontiguousarray(wave, np.float32)).to(dev)
         if num_frames(w.shape[0], cfg) == 0:
             return np.zeros((0, cfg.n_mels), np.float32)
-        return log_mel_spectrogram_fused(w, cfg).cpu().numpy()
+        return log_mel_spectrogram_fused(w, cfg, use_kernel).cpu().numpy()
 
     return extract

@@ -38,10 +38,12 @@ def pickle_feature_loader(data_dir: str, normalization: str = "cmn") -> Callable
 
 
 def wav_feature_loader(data_dir: str, feat_cfg=None, normalization: str = "cmn",
-                       host_dsp: bool = False, device="cuda") -> Callable:
+                       host_dsp: bool = False, device="cuda",
+                       use_kernel: bool = True) -> Callable:
     """Loader for raw-wav validation sets: decode, log-mel, normalize (the
     ``getEmbeddingExample`` combination). The log-mel is kernel B2 on
-    ``device`` (its plain version when ``device`` is the CPU), or with
+    ``device`` (its plain version when ``device`` is the CPU or
+    ``use_kernel`` is False, the kernel dispatcher's choice), or with
     ``host_dsp`` the native C++ kernel on the host (numpy without it), as
     training takes it when its features come from the host."""
     from ..config import FeatureConfig
@@ -58,7 +60,7 @@ def wav_feature_loader(data_dir: str, feat_cfg=None, normalization: str = "cmn",
 
                 extractors[cfg] = host_logmel_extractor(cfg, "none")
             else:
-                extractors[cfg] = make_device_logmel(cfg, device)
+                extractors[cfg] = make_device_logmel(cfg, device, use_kernel)
         return extractors[cfg]
 
     def load(utt_id: str) -> np.ndarray:
@@ -128,7 +130,8 @@ class EmbeddingExtractor:
     ``SpeakerClassifier``; its eval-mode forward, the model's mode restored
     after), or from ``embed_fn(x, lengths) -> (B, emb)`` where one is given
     (the int8 encoder, ``models/quantized.py:make_int8_embed_fn``), run with
-    ``model`` in eval mode and on its device.
+    ``model`` in eval mode and on its device. The model's pooling takes the
+    kernel dispatcher's choice for its device (``utils/kernel_auto.py``).
 
     Features load on a host thread pool; every bucketed batch of
     ``batch_size`` rows is launched before any result is read back (CUDA
@@ -145,9 +148,13 @@ class EmbeddingExtractor:
                  max_frames: Optional[int] = None,
                  stream: Optional["torch.cuda.Stream"] = None,
                  embed_fn: Optional[Callable] = None):
-        self.model = model
-        self._embed = model if embed_fn is None else embed_fn
+        from ..utils.kernel_auto import resolve_model_kernels, route_model
+
         self.device = next(model.parameters()).device
+        # embeds from features: the log-mel is never run here
+        self.model = route_model(model, resolve_model_kernels(model.cfg, need_dsp=False,
+                                                              device=self.device))
+        self._embed = model if embed_fn is None else embed_fn
         self.load = feature_loader
         self.batch_size = batch_size
         self.buckets = tuple(buckets)

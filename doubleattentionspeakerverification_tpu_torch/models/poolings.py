@@ -2,7 +2,10 @@
 
 - ``AttentionPooling``   — single learned-vector attention (poolings.py:14-27)
 - ``MHAPooling``         — level-1 multi-head attention (poolings.py:73-109);
-                           kernel B1 on the card (``ops/mha_pool.py``)
+                           kernel B1 on the card (``ops/mha_pool.py``) unless
+                           its ``use_kernel`` is False (the kernel dispatcher's
+                           choice, set at the construction sites by
+                           ``utils/kernel_auto.py:route_model``)
 - ``HeadAttention``      — level-2 attention over the head vectors
                            (poolings.py:29-71), with train-time head dropout
 - ``DoubleMHAPooling``   — the paper's Double MHA (poolings.py:112-129)
@@ -50,17 +53,19 @@ class AttentionPooling(nn.Module):
 
 
 class MHAPooling(nn.Module):
-    def __init__(self, encoder_size: int, heads: int, dk_is_heads: bool = True):
+    def __init__(self, encoder_size: int, heads: int, dk_is_heads: bool = True,
+                 use_kernel: bool = True):
         super().__init__()
         if encoder_size % heads:
             raise ValueError(f"encoder size {encoder_size} is not a multiple of {heads} heads")
         self.heads = heads
         self.dk_is_heads = dk_is_heads
+        self.use_kernel = use_kernel
         self.query = nn.Parameter(torch.empty(encoder_size // heads, heads))
 
     def forward(self, ht: torch.Tensor, lengths: Optional[torch.Tensor]) -> torch.Tensor:
         """(B, T, D) -> per-head contexts (B, H, d_h)."""
-        return mha_pool(ht, self.query, lengths, self.heads, self.dk_is_heads)
+        return mha_pool(ht, self.query, lengths, self.heads, self.dk_is_heads, self.use_kernel)
 
     def alignments(self, ht: torch.Tensor, lengths: Optional[torch.Tensor]) -> torch.Tensor:
         """Each head's weights over time (B, T, H), from the plain version."""
@@ -104,9 +109,9 @@ class HeadAttention(nn.Module):
 
 class DoubleMHAPooling(nn.Module):
     def __init__(self, encoder_size: int, heads: int, dk_is_heads: bool = True,
-                 mask_prob: float = 0.0):
+                 mask_prob: float = 0.0, use_kernel: bool = True):
         super().__init__()
-        self.mha = MHAPooling(encoder_size, heads, dk_is_heads)
+        self.mha = MHAPooling(encoder_size, heads, dk_is_heads, use_kernel)
         self.head_att = HeadAttention(encoder_size // heads, mask_prob)
 
     def forward(self, ht: torch.Tensor, lengths: Optional[torch.Tensor],
@@ -149,13 +154,18 @@ class _FlatMHA(MHAPooling):
 
 
 def make_pooling(cfg: ModelConfig, encoder_size: int) -> nn.Module:
+    """The pooling layer; an MHA pooling takes B1 on the card unless
+    ``cfg.use_pallas_pooling`` is False (auto, None, is resolved where the
+    model is run: ``utils/kernel_auto.py``)."""
     method, heads = cfg.pooling_method, cfg.heads_number
+    use_kernel = cfg.use_pallas_pooling is not False
     if method == "Attention":
         return AttentionPooling(encoder_size)
     if method == "MHA":
-        return _FlatMHA(encoder_size, heads, cfg.mha_dk_is_heads)
+        return _FlatMHA(encoder_size, heads, cfg.mha_dk_is_heads, use_kernel)
     if method == "DoubleMHA":
-        return DoubleMHAPooling(encoder_size, heads, cfg.mha_dk_is_heads, cfg.mask_prob)
+        return DoubleMHAPooling(encoder_size, heads, cfg.mha_dk_is_heads, cfg.mask_prob,
+                                use_kernel)
     if method == "StatisticalPooling":
         return StatisticalPooling()
     raise ValueError(f"unknown pooling_method {method!r}")

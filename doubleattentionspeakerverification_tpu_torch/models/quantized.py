@@ -25,12 +25,17 @@ rounds the product, the scale and the sum in bf16 each. The first conv
 product of the nine int8 taps (every sum is an integer below
 9·127² < 2²⁴), on the CPU and on the card alike.
 
-How the port differs from the JAX module: it has no ``_static_pallas_gate``.
-That gate chose XLA over the Pallas kernel off the TPU, or when the kernel
-measured slower; on the card it would be a fallback that hides the kernel.
-Here the static path runs B3 for every conv after the first, always; the
-kernel's parity with its plain version is checked by ``chip_smoke.py`` and
-the tests instead.
+The ``int8_static`` gate (JAX ``_static_pallas_gate``): on the card, once a
+calibration bakes its scales, :func:`_static_kernel_gate` runs the static
+conv stack on the calibration batch with B3 and with B3's plain version,
+requires every int8 activation equal (B3 is bit-exact) and the last conv's
+float output within :data:`TOL_STATIC_FLOAT`, and records both times in
+``utils/kernel_auto.py``'s ``decisions()["int8_pallas_conv"]``, as JAX's
+string does. Where JAX falls back to XLA on a mismatch or a slower kernel,
+the port raises on a mismatch and keeps B3 either way: the plain version
+never serves on the card (B3's seven paper convs take about 1.6 ms against
+68 ms for the plain version, PERF.md). Restored scales come with no
+calibration batch and go unchecked, as in JAX.
 
 Bit-exact where JAX is: weights are quantized on the CPU with IEEE float32
 divisions; activations are divided by their scale (a device tensor, never a
@@ -64,6 +69,10 @@ log = logging.getLogger(__name__)
 DEGENERATE_CALIBRATION_AMAX = 1e-3
 
 Scale = Union[float, torch.Tensor]
+
+# the int8_static gate: the last conv's float output, kernel vs plain,
+# relative to its largest value (the int8 activations must be equal)
+TOL_STATIC_FLOAT = 1e-6
 
 
 def _conv_order(cfg: ModelConfig) -> List[str]:
@@ -232,12 +241,13 @@ def fold_static_scales(qparams, act_scales: Sequence[float], cfg: ModelConfig):
 
 def quantized_vgg_apply_static(folded, act_scale0: Scale, x: torch.Tensor,
                                lengths: Optional[torch.Tensor], cfg: ModelConfig,
-                               intermediates: Optional[list] = None,
+                               intermediates: Optional[list] = None, use_kernel: bool = True,
                                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Static-scale int8 VGG forward: every intermediate activation is int8
     (one fused epilogue per conv, B3 on the card for every conv after the
-    first); masking and the ceil-mode pool run on the int8 tensor.
-    ``intermediates``, when given, receives each conv's masked output."""
+    first, or its plain version where ``use_kernel`` is False); masking and
+    the ceil-mode pool run on the int8 tensor. ``intermediates``, when
+    given, receives each conv's masked output."""
     order = _conv_order(cfg)
     h0 = mask_time(x.to(torch.float32), lengths)[..., None]
     q = _quantize(h0, _scalar(act_scale0, x.device))
@@ -253,7 +263,7 @@ def quantized_vgg_apply_static(folded, act_scale0: Scale, x: torch.Tensor,
             else:
                 y = conv3x3_int8(q, _w9(p["w_q"]), p["mult"], p["bias"],
                                  out_kind=cfg.compute_dtype if last else "int8",
-                                 w_packed=p["w_packed"])
+                                 w_packed=p["w_packed"], use_kernel=use_kernel)
             if last:
                 h = mask_time(y, cur_len)
             else:
@@ -278,6 +288,61 @@ def get_embedding_int8(model, qvgg, x, lengths, cfg: ModelConfig) -> torch.Tenso
 def get_embedding_int8_static(model, folded, act_scale0: Scale, x, lengths,
                               cfg: ModelConfig) -> torch.Tensor:
     return model.tail(*quantized_vgg_apply_static(folded, act_scale0, x, lengths, cfg))
+
+
+def _static_kernel_gate(folded, act_scale0: Scale, x: torch.Tensor,
+                        lengths: Optional[torch.Tensor], cfg: ModelConfig) -> str:
+    """Hold the static conv stack with B3 to the same stack with B3's plain
+    version on the calibration batch (on the card; off it only the decision
+    is recorded), time both, record the verdict in
+    ``kernel_auto.decisions()["int8_pallas_conv"]`` and return it. Raises on
+    a mismatch: the static path keeps B3."""
+    import time
+
+    from ..ops.kernels import uncounted
+    from ..utils import kernel_auto
+
+    if kernel_auto._card(x.device) is None:
+        kernel_auto._DECISIONS.setdefault("int8_pallas_conv", "auto->False (not on the card)")
+        return kernel_auto._DECISIONS["int8_pallas_conv"]
+
+    def run(use_kernel: bool, acts: Optional[list] = None):
+        return quantized_vgg_apply_static(folded, act_scale0, x, lengths, cfg, acts,
+                                          use_kernel=use_kernel)[0]
+
+    def sync():
+        if x.device.type == "cuda":
+            torch.cuda.synchronize(x.device)
+
+    def chain_ms(use_kernel: bool, k: int = 3) -> float:
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(k):
+            run(use_kernel)
+        sync()
+        return (time.perf_counter() - t0) / k * 1e3
+
+    with uncounted():
+        acts_k, acts_p = [], []
+        run(True, acts_k)
+        run(False, acts_p)
+        differ = [i for i, (a, b) in enumerate(zip(acts_k[:-1], acts_p[:-1]))
+                  if not torch.equal(a, b)]
+        last_k, last_p = acts_k[-1].to(torch.float32), acts_p[-1].to(torch.float32)
+        last_d = float((last_k - last_p).abs().max()) / max(1.0, float(last_p.abs().max()))
+        if differ or not last_d <= TOL_STATIC_FLOAT:
+            raise RuntimeError(
+                f"kernel B3 (conv_int8) int8_static self-check FAILED on the calibration "
+                f"batch {tuple(x.shape)}: int8 activations of convs {differ} differ from the "
+                f"plain version's; the last conv's float output within {last_d:.3g} of its "
+                f"largest (tolerance {TOL_STATIC_FLOAT})")
+        t_kernel = min(chain_ms(True) for _ in range(2))
+        t_plain = min(chain_ms(False) for _ in range(2))
+    verdict = (f"auto->True (B3 {t_kernel:.2f} ms vs plain {t_plain:.2f} ms at the "
+               f"calibration batch shape {tuple(x.shape)}; {len(acts_k) - 1} int8 "
+               f"activations equal, the last conv within {last_d:.3g})")
+    kernel_auto._DECISIONS["int8_pallas_conv"] = verdict
+    return verdict
 
 
 def _weights_fingerprint(qvgg) -> str:
@@ -364,6 +429,10 @@ def make_int8_embed_fn(model, cfg: ModelConfig, scheme: str = "dynamic",
     calibration batch; raises ``ValueError`` on a degenerate one) and
     ``calibration_state() -> 'dynamic' | 'uncalibrated' | 'static' |
     'fallback_dynamic'``."""
+    from ..utils.kernel_auto import resolve_model_kernels, route_model
+
+    route_model(model, resolve_model_kernels(cfg, need_dsp=False,
+                                             device=next(model.parameters()).device))
     qvgg = quantize_vgg(model.vgg)
 
     def dynamic(x, lens):
@@ -382,22 +451,31 @@ def make_int8_embed_fn(model, cfg: ModelConfig, scheme: str = "dynamic",
     calib_lock = threading.Lock()
     device = qvgg[_conv_order(cfg)[0]]["w_q"].device
 
-    def _bake(scales):
+    def _bake(scales, calibration=None):
+        """The static embed function of ``scales``; with the calibration
+        batch ``(x, lens)``, B3 is first held to its plain version on it."""
         folded = fold_static_scales(qvgg, scales, cfg)
         s0 = _scalar(scales[0], device)
+        if calibration is not None:
+            _static_kernel_gate(folded, s0, *calibration, cfg)
         return lambda x, lens: get_embedding_int8_static(model, folded, s0, x, lens, cfg)
 
     if scales_path and os.path.exists(scales_path):
         scales = load_int8_scales(scales_path, cfg, weights_sha=_weights_fingerprint(qvgg))
         box["fn"] = _bake(scales)
         box["state"] = "static"
+        if device.type == "cuda":
+            from ..utils.kernel_auto import _DECISIONS
+
+            _DECISIONS["int8_pallas_conv"] = ("auto->True (restored scales: no calibration "
+                                              "batch to check B3 on)")
         log.info("int8_static: restored %d baked scales from %s", len(scales), scales_path)
 
     def _calibrate_locked(x, lens) -> str:
         """Calibrate on (x, lens); the caller holds calib_lock and has
         checked that the batch is not degenerate. Returns the new state."""
         scales = calibrate_int8_scales(qvgg, x, lens, cfg)
-        fn = _bake(scales)
+        fn = _bake(scales, calibration=(x, lens))
         cos = _cosines(model(x, lens), fn(x, lens))
         worst = float(cos.min()) if cos.size else 1.0
         if worst < cosine_guard:

@@ -8,6 +8,12 @@ forwards: invalid frames are re-zeroed after every ReLU (so zero padding
 equals the conv's boundary padding) and lengths follow the ceil-mode pools.
 The convolutions are cuDNN's through ``F.conv2d``; they were XLA convs
 outside any kernel in the JAX package too.
+
+``ModelConfig.remat_vgg`` (JAX ``models/vgg.py:124-131``, a
+``jax.checkpoint`` of each block): under grad mode each block runs inside
+``torch.utils.checkpoint.checkpoint`` (non-reentrant), so the backward keeps
+only each block's input and recomputes its convs, ReLUs, masks and pool.
+Forwards without grad (eval, serving) are unchanged.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfig
 from ..ops.masked_ops import mask_time
@@ -73,6 +80,7 @@ class VGG(nn.Module):
         super().__init__()
         self.front_end = cfg.front_end
         self.compute_dtype = getattr(torch, cfg.compute_dtype)
+        self.remat = cfg.remat_vgg
         plan = vgg_channel_plan(cfg.front_end, cfg.kernel_size)
         self.n_blocks = len(plan)
         for i, (cin, cout) in enumerate(plan):
@@ -83,18 +91,25 @@ class VGG(nn.Module):
         dt = self.compute_dtype
         return F.conv2d(h.to(dt), conv.weight.to(dt), conv.bias.to(dt), padding=1)
 
+    def _block(self, h: torch.Tensor, i: int, cur_len: Optional[torch.Tensor]) -> torch.Tensor:
+        for j in (1, 2):
+            h = F.relu(self._conv(h, getattr(self, f"conv{i}{j}")))
+            # post-ReLU values are >= 0, so a ceil-mode window straddling
+            # the valid boundary picks the valid value
+            h = mask_time(h, cur_len, dim=2)
+        return F.max_pool2d(h, kernel_size=2, stride=2, ceil_mode=True)
+
     def forward(
         self, x: torch.Tensor, lengths: Optional[torch.Tensor]
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         h = mask_time(x, lengths)[:, None]          # (B, 1, T, F)
         cur_len = lengths
+        remat = self.remat and torch.is_grad_enabled()
         for i in range(1, self.n_blocks + 1):
-            for j in (1, 2):
-                h = F.relu(self._conv(h, getattr(self, f"conv{i}{j}")))
-                # post-ReLU values are >= 0, so a ceil-mode window straddling
-                # the valid boundary picks the valid value
-                h = mask_time(h, cur_len, dim=2)
-            h = F.max_pool2d(h, kernel_size=2, stride=2, ceil_mode=True)
+            if remat:
+                h = checkpoint(self._block, h, i, cur_len, use_reentrant=False)
+            else:
+                h = self._block(h, i, cur_len)
             if cur_len is not None:
                 cur_len = _ceil_half(cur_len)
         # (B, C, T', F') -> reference channel-major flatten (B, T', C*F')

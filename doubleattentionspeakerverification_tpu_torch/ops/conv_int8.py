@@ -186,11 +186,14 @@ def conv3x3_int8_tiled(q: torch.Tensor, w_packed: torch.Tensor, mult: torch.Tens
 
 
 def conv3x3_int8(q: torch.Tensor, w9: torch.Tensor, mult: torch.Tensor, bias: torch.Tensor,
-                 out_kind: str = "int8", w_packed: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Counterpart of ``conv3x3_int8_fused``: the plain version on the CPU,
-    the kernel on the card (``w_packed``, when given, is
-    ``pack_weights(w9)`` made once at fold time)."""
-    if q.device.type == "cpu":
+                 out_kind: str = "int8", w_packed: Optional[torch.Tensor] = None,
+                 use_kernel: bool = True) -> torch.Tensor:
+    """Counterpart of ``conv3x3_int8_fused``: the plain version on the CPU
+    or where ``use_kernel`` is False (the ``int8_static`` self-check's
+    reference, ``models/quantized.py``), the kernel on the card
+    (``w_packed``, when given, is ``pack_weights(w9)`` made once at fold
+    time)."""
+    if q.device.type == "cpu" or not use_kernel:
         return conv3x3_int8_plain(q, w9, mult, bias, out_kind)
     if w_packed is None:
         w_packed = pack_weights(w9)

@@ -8,7 +8,9 @@ compiled by ``nvcc`` for ``sm_90a`` into its own shared library under
 
 A :class:`CudaKernel` counts its launches in a plain integer; the count
 moves only where the kernel is launched, so a run can show that its path
-went through the kernel. A source may export several C entries (variants
+went through the kernel. Launches made inside :func:`uncounted` (the kernel
+dispatcher's self-checks, ``utils/kernel_auto.py``) are counted apart, in
+``check_launches``, and only for the thread that opened it. A source may export several C entries (variants
 compiled from one template); ``launch`` takes the entry's name.
 """
 
@@ -18,6 +20,7 @@ import ctypes
 import os
 import shutil
 import subprocess
+import contextlib
 import threading
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
@@ -27,6 +30,19 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_LOCAL = threading.local()
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches of this thread inside the block go to ``check_launches``,
+    not ``launches``."""
+    prev = getattr(_LOCAL, "uncounted", False)
+    _LOCAL.uncounted = True
+    try:
+        yield
+    finally:
+        _LOCAL.uncounted = prev
 
 
 def _nvcc() -> str:
@@ -49,6 +65,7 @@ class CudaKernel:
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.launches = 0
+        self.check_launches = 0
         self.build_log = ""
         self._lib = None
         self._fns: Dict[str, object] = {}
@@ -106,7 +123,10 @@ class CudaKernel:
         if rc != 0:
             raise RuntimeError(f"CUDA kernel {self.name} failed to launch: cudaError {rc}")
         with self._lock:
-            self.launches += 1
+            if getattr(_LOCAL, "uncounted", False):
+                self.check_launches += 1
+            else:
+                self.launches += 1
 
 
 def build_all(kernels: List[CudaKernel]) -> Dict[str, str]:

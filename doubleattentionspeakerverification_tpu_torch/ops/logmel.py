@@ -169,12 +169,15 @@ def log_mel_cuda(wave: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
     return out
 
 
-def log_mel_spectrogram_fused(wave: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
+def log_mel_spectrogram_fused(wave: torch.Tensor, cfg: FeatureConfig,
+                              use_kernel: bool = True) -> torch.Tensor:
     """Waveform (N,) or (B, N) -> log-mel (T, n_mels) or (B, T, n_mels):
-    the kernel on the card, its plain version on the CPU."""
+    the kernel on the card, its plain version on the CPU or where
+    ``use_kernel`` is False (the kernel dispatcher's explicit plain choice,
+    ``utils/kernel_auto.py``)."""
     if wave.dim() == 1:
-        return log_mel_spectrogram_fused(wave[None], cfg)[0]
-    if wave.device.type == "cpu":
+        return log_mel_spectrogram_fused(wave[None], cfg, use_kernel)[0]
+    if wave.device.type == "cpu" or not use_kernel:
         return log_mel_plain(wave, cfg)
     return log_mel_cuda(wave.to(torch.float32), cfg)
 

@@ -15,8 +15,10 @@ backward recomputes the weights with ``masked_softmax``, so a row of length
 0 gets zero gradient, the derivative of the zero context both forwards
 give (the JAX ``_bwd`` instead softmaxes such a row to uniform weights).
 
-``mha_pool`` takes the plain version only for tensors on the CPU; a CUDA
-tensor launches the kernel or raises. ``mha_pool_split_plain`` models the
+``mha_pool`` takes the plain version for tensors on the CPU, and on the
+card where its caller passes ``use_kernel=False`` (the kernel dispatcher's
+explicit plain choice, ``utils/kernel_auto.py``); otherwise a CUDA tensor
+launches the kernel or raises. ``mha_pool_split_plain`` models the
 kernel's own decomposition (each batch row's valid steps split over the
 ranks of a cluster and the warp chains of a rank, partial states combined)
 for the tests; no path runs it.
@@ -189,12 +191,14 @@ def mha_pool_backward(ht4: torch.Tensor, q_t: torch.Tensor, lengths: torch.Tenso
 
 
 class MhaPoolFunction(torch.autograd.Function):
-    """B1 with a gradient: (ht4, q_t, lengths) -> contexts (B, H, d_h)."""
+    """B1 with a gradient: (ht4, q_t, lengths, use_kernel) -> contexts
+    (B, H, d_h); the plain forward on the CPU or where ``use_kernel`` is
+    False, the same backward either way."""
 
     @staticmethod
-    def forward(ctx, ht4, q_t, lengths):
+    def forward(ctx, ht4, q_t, lengths, use_kernel=True):
         ctx.save_for_backward(ht4, q_t, lengths)
-        if ht4.device.type == "cpu":
+        if ht4.device.type == "cpu" or not use_kernel:
             return mha_pool_plain(ht4, q_t, lengths)
         return mha_pool_cuda(ht4.contiguous(), q_t, lengths.contiguous())
 
@@ -203,7 +207,7 @@ class MhaPoolFunction(torch.autograd.Function):
         ht4, q_t, lengths = ctx.saved_tensors
         d_ht, d_q = mha_pool_backward(ht4, q_t, lengths, g)
         return (d_ht if ctx.needs_input_grad[0] else None,
-                d_q if ctx.needs_input_grad[1] else None, None)
+                d_q if ctx.needs_input_grad[1] else None, None, None)
 
 
 def _operands(ht: torch.Tensor, query: torch.Tensor, lengths: Optional[torch.Tensor],
@@ -226,11 +230,14 @@ def mha_pool(
     lengths: Optional[torch.Tensor],
     heads: int,
     dk_is_heads: bool = True,
+    use_kernel: bool = True,
 ) -> torch.Tensor:
     """Counterpart of ``mha_pool_pallas``: ht (B, T, D), query (d_h, H) as in
     the reference -> (B, H, d_h). Autograd carries the folded scale and the
-    transpose back to ``query``."""
-    return MhaPoolFunction.apply(*_operands(ht, query, lengths, heads, dk_is_heads))
+    transpose back to ``query``. ``use_kernel=False`` takes the plain
+    version on the card too."""
+    return MhaPoolFunction.apply(*_operands(ht, query, lengths, heads, dk_is_heads),
+                                 use_kernel)
 
 
 def mha_pool_alignments(ht: torch.Tensor, query: torch.Tensor, lengths: Optional[torch.Tensor],

@@ -12,8 +12,15 @@ once, and the step counter that annealing reads moves on.
 In wav mode (``waves`` in the batch) the log-mel runs in the step: int16
 PCM is divided by 32768, the log-mel is kernel B2 on the card, and the
 normalization is masked by the valid frames. The MHA pooling is kernel B1
-with its backward (``ops/mha_pool.py``). The step runs on the card unless
-the caller asks for the CPU.
+with its backward (``ops/mha_pool.py``). A step (``TrainStep``, made by
+``make_train_step``, and ``make_eval_loss_step``) resolves the tri-state
+kernel flags for its device (``utils/kernel_auto.py``, as JAX resolves them
+where it builds the step) and keeps the resolved config; the caller's stays
+as it was. Where
+the data config says the step sees features (B2 resolved as unused, with
+no self-check) and a batch carries waves all the same, B2 is resolved then,
+behind its self-check: on the card the log-mel never runs the plain version
+unasked. The step runs on the card unless the caller asks for the CPU.
 
 Random draws (head dropout, SpecAugment) come only from the step's
 ``torch.Generator``, reseeded before every optimizer step from
@@ -45,6 +52,7 @@ from ..parallel.distributed import all_reduce_
 from ..parallel.mesh import SHARDED, host_batch_rows
 from ..parallel.sharded_amsoftmax import sharded_amsoftmax_ce
 from ..utils.device import resolve_device
+from ..utils.kernel_auto import resolve_fast_kernels, route_model
 
 Batch = Dict[str, object]
 
@@ -53,6 +61,17 @@ def step_seed(seed: int, step: int) -> int:
     """The generator seed of optimizer step ``step`` of a run seeded with
     ``seed``: a pure function of the two."""
     return int(np.random.SeedSequence([seed + 17, step]).generate_state(1, np.uint64)[0])
+
+
+def resolved_for(requested: ExperimentConfig, resolved: ExperimentConfig, batch: Batch,
+                 device: torch.device) -> ExperimentConfig:
+    """``resolved``, or, where it was resolved for features (the log-mel
+    unused) and ``batch`` carries waves, ``requested`` resolved again with
+    the log-mel in the step."""
+    if ("waves" in batch and requested.model.use_pallas_dsp is None
+            and not resolved.model.use_pallas_dsp):
+        return resolve_fast_kernels(requested, device, need_dsp=True)
+    return resolved
 
 
 def _tensor(x, device: torch.device) -> torch.Tensor:
@@ -70,8 +89,10 @@ def prepare_inputs(batch: Batch, cfg: ExperimentConfig, device: torch.device):
         if waves.dtype == torch.int16:      # PCM transfer: undo the host-side scale
             waves = waves.to(torch.float32) / 32768.0
         g, b = waves.shape[:2]
-        feats = log_mel_spectrogram_fused(waves.reshape(g * b, -1).to(torch.float32),
-                                          cfg.features).reshape(g, b, -1, cfg.features.n_mels)
+        feats = log_mel_spectrogram_fused(
+            waves.reshape(g * b, -1).to(torch.float32), cfg.features,
+            use_kernel=cfg.model.use_pallas_dsp is not False,
+        ).reshape(g, b, -1, cfg.features.n_mels)
         if lengths is not None:
             lengths = frames_for_samples(lengths, cfg.features)
         return normalize_features(feats, cfg.train.normalization, lengths=lengths), lengths
@@ -102,7 +123,9 @@ class TrainStep:
     def __init__(self, cfg: ExperimentConfig, model: SpeakerClassifier,
                  optimizer: torch.optim.Optimizer, device: torch.device,
                  generator: torch.Generator, mesh=None):
-        self.cfg, self.model, self.optimizer = cfg, model, optimizer
+        self.requested = cfg
+        self.cfg = resolve_fast_kernels(cfg, device)
+        self.model, self.optimizer = route_model(model, self.cfg.model), optimizer
         self.device, self.generator = device, generator
         self.step = 0
         self.mesh = mesh
@@ -160,6 +183,7 @@ class TrainStep:
 
     def __call__(self, batch: Batch, keep: Optional[Sequence[torch.Tensor]] = None):
         tcfg = self.cfg.train
+        self.cfg = resolved_for(self.requested, self.cfg, batch, self.device)
         feats, lengths = prepare_inputs(batch, self.cfg, self.device)
         labels = _tensor(batch["labels"], self.device).to(torch.int64)
         g = feats.shape[0]
@@ -226,11 +250,13 @@ def make_eval_loss_step(cfg: ExperimentConfig, model: SpeakerClassifier, device=
     all G x B windows at once (annealing at step 0, cross-entropy), changing
     no state."""
     dev = resolve_device(device)
-    model = model.to(dev)
+    box = {"cfg": resolve_fast_kernels(cfg, dev)}
+    model = route_model(model.to(dev), box["cfg"].model)
 
     @torch.no_grad()
     def eval_step(batch: Batch):
-        feats, lengths = prepare_inputs(batch, cfg, dev)
+        box["cfg"] = resolved_for(cfg, box["cfg"], batch, dev)
+        feats, lengths = prepare_inputs(batch, box["cfg"], dev)
         labels = _tensor(batch["labels"], dev).to(torch.int64).reshape(-1)
         was_training = model.training
         model.eval()

@@ -29,8 +29,12 @@ coordinator's auto wav-mode verdict and cache demotion broadcast, and a
 graceful stop agreed every ``preempt_sync_every`` steps as the OR of every
 process's flag. Validation needs no gather of ``W``: the embedding stops
 at ``b2``, and every other parameter is whole on every process. One
-process ignores ``mesh`` (JAX on one device makes no mesh either). The JAX
-package's profiler window is refused (ROADMAP Queue A item 8).
+process ignores ``mesh`` (JAX on one device makes no mesh either).
+
+``profile_dir`` traces optimizer steps ``[profile_start_step,
++ profile_steps)`` with ``torch.profiler`` (``utils/profiling.py``), logging
+``profile_started`` and ``profile_stopped`` as the JAX trainer does; the
+capture closes after the window's last step's device work.
 """
 
 from __future__ import annotations
@@ -66,7 +70,9 @@ from ..utils.checkpoint import (
     prune_checkpoints,
 )
 from ..utils.device import resolve_device
+from ..utils.kernel_auto import resolve_dsp
 from ..utils.logging import MetricLogger
+from ..utils.profiling import StepProfiler
 from ..utils.weights import load_train_state, optimizer_state_by_name, train_state_to_jax
 from .device_prefetch import device_prefetch
 from .optimizers import get_lr, make_optimizer, with_lr
@@ -78,9 +84,6 @@ def refuse_unported(cfg: ExperimentConfig) -> None:
     here rather than being ignored."""
     if cfg.train.checkpoint_backend not in ("npz", "orbax"):
         raise ValueError(f"unknown checkpoint_backend {cfg.train.checkpoint_backend!r}")
-    if cfg.train.profile_dir:
-        raise ValueError("profile_dir: the profiler window is not ported "
-                         "(ROADMAP Queue A item 8)")
 
 
 class TrainSnapshot(NamedTuple):
@@ -295,9 +298,11 @@ class Trainer:
 
             host_dsp = cfg.data.host_dsp or self._resolved_source_mode in (
                 "wav_host_dsp", "wav_cache")
+            use_kernel = resolve_dsp(cfg.model.use_pallas_dsp, cfg.features,
+                                     need_dsp=not host_dsp, device=self.device)
             loader = wav_feature_loader(cfg.data.valid_data_dir, cfg.features,
                                         cfg.train.normalization, host_dsp=host_dsp,
-                                        device=self.device)
+                                        device=self.device, use_kernel=use_kernel)
             self.log.log("valid_loader", host_dsp=bool(host_dsp),
                          train_mode=self._resolved_source_mode)
         else:
@@ -611,6 +616,9 @@ class Trainer:
         metric_n = 0
         step = self.step
         last_batch = None
+        last_metrics = None
+        profiler = StepProfiler(cfg.train.profile_dir, cfg.train.profile_start_step,
+                                cfg.train.profile_steps)
         wait_s = dispatch_s = 0.0  # host-side accounting per print window
 
         for self.epoch in range(self.starting_epoch, cfg.train.max_epochs):
@@ -626,8 +634,12 @@ class Trainer:
                 if batch is None:
                     break
                 last_batch = batch
+                evt = profiler.before_step(
+                    step, sync=None if last_metrics is None else last_metrics["loss"])
+                if evt:
+                    self.log.log(f"profile_{evt}", step=step, dir=cfg.train.profile_dir)
                 t_d = time.perf_counter()
-                metrics = self.train_step(batch)
+                metrics = last_metrics = self.train_step(batch)
                 dispatch_s += time.perf_counter() - t_d
                 metric_sum += torch.stack((metrics["loss"], metrics["accuracy"])).detach()
                 metric_n += 1
@@ -688,6 +700,9 @@ class Trainer:
                 self.log.log("early_stop", best_eer=self.best_eer)
                 break
             self._halve_lr_if_stagnant()
+        if profiler.active:  # the run ended inside the window
+            profiler.close(sync=None if last_metrics is None else last_metrics["loss"])
+            self.log.log("profile_stopped", step=step, dir=cfg.train.profile_dir)
         self._join_validation()
         self._checkpointer.wait()
         if cfg.train.post_step_bench > 0 and last_batch is not None:

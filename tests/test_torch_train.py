@@ -423,6 +423,65 @@ def test_train_step_matches_jax(wav, monkeypatch):
         assert float(got["accuracy"]) == pytest.approx(float(ref["accuracy"]))
 
 
+def test_remat_vgg_step_matches_plain_step_and_jax(monkeypatch):
+    """``remat_vgg`` runs each VGG block under ``torch.utils.checkpoint`` in
+    the train step (one call a block a microbatch, none without grad) and
+    changes no number: the step with it equals the step without it (loss and
+    every gradient at 1e-6), and JAX's remat step from the same weights to
+    the whole-step tolerances above. The batch is JAX
+    ``tests/test_training.py``'s remat case: G=2 x B=4 x 80 frames, full
+    length."""
+    from doubleattentionspeakerverification_tpu_torch.models import vgg as pvgg
+
+    jcfg, cfg = _configs()
+    jcfg = jcfg.replace(model=dataclasses.replace(jcfg.model, remat_vgg=True))
+    params, ms = _jax_state(jcfg)
+    rng = np.random.default_rng(0)
+    batch = {"inputs": rng.standard_normal((G, B, T, 80)).astype(np.float32),
+             "lengths": np.full((G, B), T, np.int32),
+             "labels": np.tile(np.arange(B, dtype=np.int32), (G, 1))}
+    key = jax.random.PRNGKey(7)
+    new_state, metrics = jstep.make_train_step(jcfg, donate=False)(
+        jstep.init_train_state(params, ms, jcfg), batch, key)
+    n_levels = int(1 / cfg.model.mask_prob)
+    keep = [_t(jax.random.randint(jax.random.fold_in(key, i), (B, HEADS), 0, n_levels) > 0)
+            for i in range(G)]
+    calls = []
+    real_checkpoint = pvgg.checkpoint
+    monkeypatch.setattr(pvgg, "checkpoint", lambda *a, **kw: calls.append(1) or
+                        real_checkpoint(*a, **kw))
+
+    runs = {}
+    for remat in (False, True):
+        calls.clear()
+        c = cfg.replace(model=dataclasses.replace(cfg.model, remat_vgg=remat))
+        model = _port_model(c, params, ms)
+        p0 = {k: v.detach().clone() for k, v in model.named_parameters()}
+        step = make_train_step(c, model, popt.make_optimizer(c.train, model.parameters()),
+                               device="cpu")
+        out = step(batch, keep=keep)
+        assert len(calls) == (G * model.vgg.n_blocks if remat else 0)
+        with torch.no_grad():
+            model.eval()(torch.from_numpy(batch["inputs"][0]))
+        assert len(calls) == (G * model.vgg.n_blocks if remat else 0)
+        runs[remat] = (float(out["loss"]), {n: p.grad.clone() for n, p in model.named_parameters()},
+                       p0, model)
+    (loss0, grads0, _, _), (loss1, grads1, p0, model) = runs[False], runs[True]
+    assert abs(loss1 - loss0) <= 1e-6
+    for name in grads0:
+        torch.testing.assert_close(grads1[name], grads0[name], rtol=0, atol=1e-6, msg=name)
+
+    np.testing.assert_allclose(loss1, float(metrics["loss"]), atol=TOL, rtol=0)
+    lr = cfg.train.learning_rate
+    new_flat = params_from_jax(_flatten({"params": new_state.params,
+                                         "model_state": new_state.model_state}))
+    ref_grads = {name: (p0[name] - new_flat[name]) / lr for name in p0}
+    scales = grad_scales(ref_grads)
+    for name, p in model.named_parameters():
+        torch.testing.assert_close(p.grad, ref_grads[name], rtol=0, atol=1e-4 * scales[name],
+                                   msg=name)
+
+
 def test_train_step_draws_and_refusals():
     """Without keep masks the step draws them (and SpecAugment's spans) from
     its generator: the same seed gives the same step. Focal with the chunked

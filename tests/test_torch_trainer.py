@@ -47,6 +47,7 @@ from doubleattentionspeakerverification_tpu_torch.training import device_prefetc
 from doubleattentionspeakerverification_tpu_torch.training.trainer import Trainer
 from doubleattentionspeakerverification_tpu_torch.utils.checkpoint import load_checkpoint
 from doubleattentionspeakerverification_tpu_torch.utils.logging import MetricLogger
+from doubleattentionspeakerverification_tpu_torch.utils.tensorboard import read_scalars
 from doubleattentionspeakerverification_tpu_torch.utils.watchdog import Watchdog
 from test_data import make_synthetic_features
 from test_torch_data import jax_state_from_port
@@ -185,11 +186,12 @@ class _Run:
         return load_checkpoint(os.path.join(self.out_dir, name))[0]
 
 
-def _jax_run(jtr, state0, out_dir, overrides=None, start_from=None):
+def _jax_run(jtr, state0, out_dir, overrides=None, start_from=None, tensorboard_dir=None):
     """A JAX ``Trainer.train()`` on a shallow copy of ``jtr`` (its compiled
     step and embedding function reused) from the host state ``state0``, or
     resumed from the newest checkpoint in ``start_from`` copied to
-    ``out_dir``."""
+    ``out_dir``; its logger also writes TensorBoard scalars to
+    ``tensorboard_dir`` where one is given."""
     j = copy.copy(jtr)
     cfg = jtr.cfg.replace(out_dir=str(out_dir))
     if overrides:
@@ -197,7 +199,8 @@ def _jax_run(jtr, state0, out_dir, overrides=None, start_from=None):
     os.makedirs(out_dir, exist_ok=True)
     j.cfg = cfg
     metrics = os.path.join(str(out_dir), "jax_metrics.jsonl")
-    j.log = JaxLogger(jsonl_path=metrics, stream=io.StringIO())
+    j.log = JaxLogger(jsonl_path=metrics, stream=io.StringIO(),
+                      tensorboard_dir=None if tensorboard_dir is None else str(tensorboard_dir))
     j.state = jax.tree.map(jnp.asarray, state0)
     j._checkpointer = jckpt.AsyncCheckpointer()
     j._watchdog, j._pending_val, j.best_ckpt_path = None, None, None
@@ -246,8 +249,8 @@ def runs(tmp_path_factory):
     _write_step0(jtr, state0, port_dir)
     return {
         "root": root, "jtr": jtr, "state0": state0,
-        "jax": _jax_run(jtr, state0, root / "jax"),
-        "port": _port_run(root, port_dir),
+        "jax": _jax_run(jtr, state0, root / "jax", tensorboard_dir=root / "jax_tb"),
+        "port": _port_run(root, port_dir, "--tensorboard_dir", str(root / "port_tb")),
     }
 
 
@@ -459,6 +462,51 @@ def test_resume_step(runs, tmp_path):
     assert [e["step"] for e in _events(_metrics_path(tmp_path), "train")] == [4]
 
 
+def _tb_scalars(logdir):
+    (path,) = [os.path.join(logdir, f) for f in os.listdir(logdir)
+               if f.startswith("events.out.tfevents.")]
+    return {(step, tag): value for (_, step, tag, value) in read_scalars(path)}
+
+
+def test_tensorboard_scalars_follow_jax(runs):
+    """``--tensorboard_dir``: the port's run writes the scalar tags the JAX
+    trainer writes for the same run, at the same steps; each train loss
+    equals the port's JSONL value (as float32) and JAX's to the step
+    tolerance of ``test_trajectory_matches_jax``. The port's run adds two events of its own: ``resume`` (it
+    starts from the step-0 file) and ``ckpt_save`` (the port times its npz
+    saves; JAX logs the event for orbax saves only)."""
+    port, jax_tb = _tb_scalars(runs["root"] / "port_tb"), _tb_scalars(runs["root"] / "jax_tb")
+    own = {k for k in port if k[1].split("/")[0] in ("resume", "ckpt_save")}
+    assert {t for (_, t) in own} == {"resume/epoch", "resume/in_epoch_skip",
+                                     "ckpt_save/blocked_s"}
+    assert set(port) - own == set(jax_tb)
+    train = runs["port"].events("train")
+    assert [e["step"] for e in train] == [1, 2, 3, 4]
+    for e in train:
+        assert port[(e["step"], "train/xent")] == np.float32(e["xent"])
+        assert port[(e["step"], "train/xent")] == pytest.approx(
+            jax_tb[(e["step"], "train/xent")], rel=TOL_STEP)
+    assert {t for (_, t) in port} >= {"train/xent", "train/accuracy", "validate/eer"}
+
+
+def test_profile_window_from_the_cli(runs, tmp_path):
+    """``--profile_dir``: a 4-step run traced over steps 1 and 2 logs both
+    events and writes one readable ``torch.profiler`` trace holding the
+    steps' convolutions."""
+    prof = tmp_path / "prof"
+    out = tmp_path / "out"
+    assert pcli.main(_argv(runs["root"], out, "--device", "cpu", "--profile_dir", str(prof),
+                           "--profile_start_step", "1", "--profile_steps", "2",
+                           "--validate_every", "0", "--checkpoint_every", "0")) == 0
+    metrics = _metrics_path(out)
+    assert [(e["step"], e["dir"]) for e in _events(metrics, "profile_started")] == [(1, str(prof))]
+    assert [e["step"] for e in _events(metrics, "profile_stopped")] == [3]
+    (name,) = os.listdir(prof)
+    with open(prof / name) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert "aten::conv2d" in names
+
+
 @pytest.mark.parametrize("flags, message", [
     (["--distributed"], "needs a coordinator"),
     (["--coordinator_address", "localhost:1234"], "needs the process count"),
@@ -466,12 +514,10 @@ def test_resume_step(runs, tmp_path):
       "--coordinator_address", "localhost:1234"], "process id 2 outside 0..1"),
     (["--coordinator_address", "localhost", "--num_processes", "2", "--process_id", "0"],
      "give host:port"),
-    (["--profile_dir", "prof"], "Queue A item 8"), (["--tensorboard_dir", "tb"], "Queue A item 8"),
 ])
 def test_refused_flags_exit_nonzero(runs, tmp_path, flags, message, capsys):
-    """What the port does not carry out (ROADMAP Queue A item 8), and a
-    multi-process launch without its topology, exit 2 before anything is
-    written or any process is contacted."""
+    """A multi-process launch without its topology exits 2 before anything
+    is written or any process is contacted."""
     assert pcli.main(_argv(runs["root"], tmp_path, "--device", "cpu", *flags)) == 2
     assert message in capsys.readouterr().err
     assert not os.listdir(tmp_path)
