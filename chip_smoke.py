@@ -94,7 +94,21 @@ contexts and the embedding against the default path's) and prints the
 ``int8_static`` gate's verdict with B3's and its plain version's times.
 ``[train remat]`` takes [train]'s step with ``remat_vgg`` (step 1's
 gradients held to [train]'s by [train]'s measure; the median of three
-timed steps and the peak memory beside [train]'s). ``[profile]`` runs
+timed steps and the peak memory beside [train]'s). ``[train bf16]`` takes
+it with ``compute_dtype="bfloat16"``, on [train]'s batch and with
+``assume_full_lengths`` on full windows (bench.py's configuration): the
+loss, the accuracy and every gradient against the float32 step's, each
+gradient's distance held to that of the float32 step with the bfloat16
+encoder's roundings emulated (``tools/bf16_drift.py``); ``[train full]``
+takes the float32 step with ``assume_full_lengths`` against the masked one
+on the same full windows; each is timed beside [train] with its peak memory
+and B1 2 and B2 1 launches a step. ``[distributed]`` also checks the
+asynchronous ``.dcp`` saves (``utils/dist_ckpt.py:DcpAsyncSaver``): one
+through NCCL at world size 1 (no ``meta.json`` before its wait, every leaf
+back), the CLI runs' ``ckpt_save`` modes and ``blocked_s``, a
+``--no-checkpoint_async`` run leaving the leaves of the asynchronous one,
+and the saver alone on the paper model's leaves against a synchronous
+save. ``[profile]`` runs
 ``cli/train.py`` for 4 steps on the [trainer] corpus with
 ``--profile_dir`` (steps 2-3) and ``--tensorboard_dir``: the trace holds
 B1's and B2's kernels by symbol, the TensorBoard scalars equal the JSONL
@@ -152,6 +166,23 @@ TRAIN_STEPS = 3
 # saturation (each feature normalizes to about +-1), which leaves the
 # gradients before it a near-cancellation; 8 items keep them well-conditioned
 TRAIN_SMALL = (8, 2.0)
+# [train bf16]: the bfloat16 step (compute_dtype="bfloat16") against the
+# float32 step on the same batch. bfloat16 rounds to nearest at 8 significant
+# bits, a relative error of at most 2^-9 a rounding. The loss (a mean of
+# float32 terms after the encoder) within one bfloat16 step, 2^-8, of its
+# value; the accuracy within one item a microbatch (an item whose top two
+# cosines lie within the encoder's rounding may swap them). Each gradient's
+# L2 distance from the float32 step's is what bfloat16's roundings make of
+# it through the encoder (at random weights, tens of percent in the first
+# convs, whose gradients are sums that largely cancel), so it is held to the
+# float32 step run with the encoder's roundings emulated by random errors of
+# their size (tools/bf16_drift.py): within TOL_BF16_EMU times that step's
+# distance, or within 2^-8 of the gradient's norm. The bfloat16 step also
+# rounds its backward's cotangents, which the emulation does not; on the CPU
+# the largest ratio of the two distances was 2.90 at k=64, 2.47 at k=128 and
+# 1.44-1.87 at k=256 over three seeds (bf16_drift on normal features).
+TOL_BF16_LOSS = 2.0 ** -8
+TOL_BF16_EMU = 4.0
 # [trainer]: the corpus, and step 4's loss after a stop at step 3 and a
 # resume, against the uninterrupted run's (cuDNN deterministic, the state
 # read back from float32 checkpoint leaves: equal up to float32 rounding)
@@ -790,6 +821,35 @@ def train_run(cfg, state0, batch, keep, device, plain_pool=False):
     return ({k: float(v) for k, v in out.items()}, grads, mha_pool.KERNEL.launches - before)
 
 
+def compare_bf16(label, out, grads, ref_out, ref_grads, emu_grads, b):
+    """[train bf16]: a bfloat16 step's loss, accuracy and every gradient
+    against the float32 step's (``ref_*``), each gradient's distance beside
+    the emulated step's (TOL_BF16_LOSS, TOL_BF16_EMU). Returns the largest
+    distance and the largest ratio to the emulated one."""
+    dl = abs(out["loss"] - ref_out["loss"])
+    check(dl <= TOL_BF16_LOSS * abs(ref_out["loss"]), f"[train bf16] {label}: loss "
+          f"{out['loss']} vs float32 {ref_out['loss']} (tol {TOL_BF16_LOSS} relative)")
+    da = abs(out["accuracy"] - ref_out["accuracy"])
+    check(da <= 1.0 / b + 1e-6, f"[train bf16] {label}: accuracy {out['accuracy']} vs float32 "
+          f"{ref_out['accuracy']} (tol one item a microbatch, {1.0 / b:.4g})")
+    from doubleattentionspeakerverification_tpu_torch.tools.bf16_drift import distances
+
+    check(set(grads) == set(ref_grads), f"[train bf16] {label}: parameter set")
+    got, emu = distances(grads, ref_grads), distances(emu_grads, ref_grads)
+    ratio = {k: got[k] / max(emu[k], 1e-30) for k in got}
+    bad = [k for k in got if not (got[k] <= TOL_BF16_EMU * emu[k] or got[k] <= TOL_BF16_LOSS)]
+    print(f"[train bf16] {label}: loss {out['loss']:.6f} vs float32 {ref_out['loss']:.6f} "
+          f"(|d| / loss {dl / abs(ref_out['loss']):.3g}, tol {TOL_BF16_LOSS:.4g}); accuracy "
+          f"{out['accuracy']:.4f} vs {ref_out['accuracy']:.4f}; each gradient's L2 distance "
+          f"from the float32 step's / its norm (the emulated step's): "
+          + ", ".join(f"{k} {got[k]:.3g} ({emu[k]:.3g})" for k in ref_grads)
+          + f"; worst ratio {max(ratio.values()):.3g} ({max(ratio, key=ratio.get)}, tol "
+          f"{TOL_BF16_EMU})")
+    check(not bad, f"[train bf16] {label}: gradients beyond {TOL_BF16_EMU} x the emulated "
+          f"step's distance: " + ", ".join(f"{k} {got[k]:.3g} ({emu[k]:.3g})" for k in bad))
+    return max(got.values()), max(ratio.values())
+
+
 def train_conv_ops(cfg, b, frames):
     """Operations of the encoder's convolutions in one microbatch of b
     windows of ``frames`` frames, forward and backward (weight gradients of
@@ -808,9 +868,12 @@ def train_conv_ops(cfg, b, frames):
 def phase_train():
     """The train step at the paper's width and recipe, wav mode: its
     gradients on the kernel path against the plain pooling's on the card,
-    one small step against the CPU, then three steps driven with every
-    kernel count at 0, timed. Returns B1's and B2's launches in those
-    steps."""
+    with ``remat_vgg`` ([train remat]), in bfloat16 on the same batch and
+    with ``assume_full_lengths`` on full windows ([train bf16], each against
+    the float32 step and the emulated one), the float32 step with
+    ``assume_full_lengths`` against the masked one ([train full]), one small
+    step against the CPU, then three steps of each driven with every kernel
+    count at 0, timed. Returns B1's and B2's launches in [train]'s steps."""
     import torch
 
     from doubleattentionspeakerverification_tpu_torch import ops
@@ -818,6 +881,7 @@ def phase_train():
     from doubleattentionspeakerverification_tpu_torch.models.classifier import SpeakerClassifier
     from doubleattentionspeakerverification_tpu_torch.models.init import init_parameters
     from doubleattentionspeakerverification_tpu_torch.models.poolings import draw_head_keep
+    from doubleattentionspeakerverification_tpu_torch.tools.bf16_drift import emulated_bf16_convs
     from doubleattentionspeakerverification_tpu_torch.tools.timing import FP32_OPS_PER_S
     from doubleattentionspeakerverification_tpu_torch.training.optimizers import make_optimizer
     from doubleattentionspeakerverification_tpu_torch.training.step import (
@@ -876,7 +940,58 @@ def phase_train():
     kr, _ = compare_grads(grads_r, grads_k, "step 1 with remat_vgg vs without", tag="[train remat]")
     print(f"[train remat] step 1: loss {out_r['loss']:.6f} ([train] {out_k['loss']:.6f}); "
           f"gradients within {kr:.3g} of their scale of [train]'s (tol {TOL_TRAIN_GRAD})")
-    del grads_k, grads_r
+    del grads_r
+
+    # step 1 in bfloat16 against float32: on [train]'s batch, and with
+    # assume_full_lengths on full windows (bench.py's configuration). The
+    # float32 step with assume_full_lengths against the masked one on the
+    # same full windows ([train full])
+    bf16 = cfg.replace(model=dataclasses.replace(m, compute_dtype="bfloat16"))
+    full = cfg.replace(train=dataclasses.replace(t, assume_full_lengths=True))
+    bf16_full = full.replace(model=bf16.model)
+    full_batch = dict(batch, lengths=np.full_like(batch["lengths"], batch["waves"].shape[-1]))
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {}
+        for key, c, bb in (("bf16", bf16, batch), ("f32 full", full, full_batch),
+                           ("f32 masked full", cfg, full_batch),
+                           ("bf16 full", bf16_full, full_batch)):
+            runs[key] = train_run(c, state0, bb, keep, DEVICE)
+        for key, c, bb in (("emu", cfg, batch), ("emu full", full, full_batch)):
+            with emulated_bf16_convs(seed=14, device=DEVICE):
+                runs[key] = train_run(c, state0, bb, keep, DEVICE)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    for key, (_, _, launched) in runs.items():
+        check(launched == g, f"[train bf16] {key}: B1 launches {launched}")
+    bf16_worst = [
+        compare_bf16(f"{label} ({what})", runs[key][0], runs[key][1], ref[0], ref[1],
+                     runs[emu][1], b)
+        for label, what, key, ref, emu in (
+            ("ragged", "[train]'s batch, the second microbatch ragged", "bf16",
+             (out_k, grads_k), "emu"),
+            ("full-length", "assume_full_lengths on full windows", "bf16 full",
+             runs["f32 full"], "emu full"))]
+    # On full windows the masks are identities, but the masked CMN's mean
+    # is another sum than the unmasked one: the features differ in their
+    # last bits, which moves the encoder's gradients as [train]'s card vs
+    # CPU does, so those are held by [train]'s L2 measure
+    out_m, grads_m, _ = runs["f32 masked full"]
+    out_f, grads_f, _ = runs["f32 full"]
+    feats = [prepare_inputs(full_batch, c, torch.device(DEVICE))[0] for c in (cfg, full)]
+    feat_d = float((feats[1] - feats[0]).abs().max()) / float(feats[0].abs().max())
+    del feats
+    check(abs(out_f["loss"] - out_m["loss"]) <= TOL_TRAIN_LOSS,
+          f"[train full] loss {out_f['loss']} vs the masked step's {out_m['loss']}")
+    sensitive = {k for k in grads_m if k.startswith("vgg.")} | {"fc2.bias"}
+    kf, kf_l2 = compare_grads(grads_f, grads_m, "step 1 with assume_full_lengths vs the masked "
+                              "step on the same full windows", sensitive, tag="[train full]")
+    print(f"[train full] step 1 on full windows: features within {feat_d:.3g} of their largest "
+          f"of the masked step's; loss {out_f['loss']:.6f} (masked {out_m['loss']:.6f}, tol "
+          f"{TOL_TRAIN_LOSS}); gradients within {kf:.3g} of their largest (tol "
+          f"{TOL_TRAIN_GRAD}), the encoder's and fc2.bias's within {kf_l2:.3g} of their norm "
+          f"(tol {TOL_TRAIN_L2})")
+    del grads_k, runs, grads_m, grads_f
 
     # one small step, card against CPU, on the same CPU-made features
     small = train_batch(np.random.default_rng(11), cfg, 1, TRAIN_SMALL[0], TRAIN_SMALL[1], ragged=())
@@ -911,9 +1026,12 @@ def phase_train():
           f"{conv_ops / FP32_OPS_PER_S * 1e3:.1f} ms at the float32 peak")
 
     # the main path: TRAIN_STEPS steps, kernel counts read from 0; then the
-    # same with remat_vgg
+    # same with remat_vgg, in bfloat16 and with assume_full_lengths
     timed = {}
-    for tag, c in (("[train]", cfg), ("[train remat]", remat)):
+    for tag, c, bb in (("[train]", cfg, batch), ("[train remat]", remat, batch),
+                       ("[train bf16] ragged", bf16, batch),
+                       ("[train bf16] full-length", bf16_full, full_batch),
+                       ("[train full]", full, full_batch)):
         model = SpeakerClassifier(c.model)
         model.load_state_dict(state0)
         step = make_train_step(c, model, make_optimizer(t, model.parameters()), DEVICE)
@@ -926,7 +1044,7 @@ def phase_train():
         for _ in range(TRAIN_STEPS):
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
-            out = step(batch)
+            out = step(bb)
             end.record()
             torch.cuda.synchronize()
             times.append(start.elapsed_time(end))
@@ -938,8 +1056,9 @@ def phase_train():
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         del model, step
         check(all(math.isfinite(x) for x in losses), f"{tag} losses {losses}")
-        for name in ("mha_pool", "logmel"):
-            check(launches[name] > 0, f"kernel {name} was never launched on the {tag} path")
+        for name, per_step in (("mha_pool", g), ("logmel", 1)):
+            check(launches[name] == per_step * TRAIN_STEPS, f"kernel {name}: "
+                  f"{launches[name]} launches in {TRAIN_STEPS} steps on the {tag} path")
         timed[tag] = (float(np.median(times)), peak_gib, launches)
         print(f"{tag} kernel launches in {TRAIN_STEPS} steps: {json.dumps(launches)}")
         print(f"{tag} {TRAIN_STEPS} steps of G={g} x B={b} x {t.window_size} s windows (wav "
@@ -948,10 +1067,17 @@ def phase_train():
               + ", ".join(f"{x:.1f}" for x in times) + f" ms (CUDA events), median "
               f"{float(np.median(times)):.1f} ms; peak torch.cuda.max_memory_allocated = "
               f"{peak_gib:.2f} GiB")
-    (ms0, peak0, launches), (ms1, peak1, _) = timed["[train]"], timed["[train remat]"]
-    print(f"[train remat] median step {ms1:.1f} ms against [train]'s {ms0:.1f} ms "
-          f"({ms1 / ms0 - 1:+.1%}); peak {peak1:.2f} GiB against {peak0:.2f} GiB "
-          f"({peak1 / peak0 - 1:+.1%})")
+    ms0, peak0, launches = timed["[train]"]
+    for tag in ("[train remat]", "[train bf16] ragged", "[train bf16] full-length",
+                "[train full]"):
+        ms1, peak1, _ = timed[tag]
+        print(f"{tag} median step {ms1:.1f} ms against [train]'s {ms0:.1f} ms "
+              f"({ms1 / ms0 - 1:+.1%}); peak {peak1:.2f} GiB against {peak0:.2f} GiB "
+              f"({peak1 / peak0 - 1:+.1%})")
+    (d_ragged, r_ragged), (d_full, r_full) = bf16_worst
+    print(f"[train bf16] step 1 against float32: gradients' largest L2 distance / norm "
+          f"{d_ragged:.3g} ragged, {d_full:.3g} full-length, at most {max(r_ragged, r_full):.3g} "
+          f"times the emulated step's (tol {TOL_BF16_EMU})")
     return launches
 
 
@@ -1252,6 +1378,28 @@ def dist_nccl_rank(workdir):
         got.append(dist_step_result(model, mesh, step(batch)))
     (m_g, g_g, p_g), (m_p, g_p, p_p) = got
 
+    # the state after the step as one asynchronous .dcp through the trainer's
+    # saver (its own gloo group, since async_save needs a CPU backend and the
+    # default group is NCCL's): no meta.json until wait(), then every leaf
+    from doubleattentionspeakerverification_tpu_torch.utils.dist_ckpt import (
+        DcpAsyncSaver, load_checkpoint_dcp,
+    )
+    from doubleattentionspeakerverification_tpu_torch.utils.weights import train_state_to_jax
+
+    leaves = train_state_to_jax({k: v.cpu() for k, v in model.state_dict().items()}, {}, "SGD",
+                                1, 0.1)
+    saver = DcpAsyncSaver()
+    t0 = time.perf_counter()
+    path = saver.save(os.path.join(workdir, "nccl_1.dcp"), leaves, {"step": 1})
+    issued_s = time.perf_counter() - t0
+    marker_early = os.path.exists(os.path.join(path, "meta.json"))
+    saver.wait()
+    back, meta = load_checkpoint_dcp(path)
+    dcp = dict(issued_s=issued_s, wait_s=time.perf_counter() - t0 - issued_s,
+               marker_early=marker_early, meta=meta, n_leaves=len(leaves),
+               equal=set(back) == set(leaves) and all(np.array_equal(back[k], leaves[k])
+                                                      for k in leaves))
+
     def rel(a, b):
         return max(float(np.abs(a[k] - b[k]).max()) / max(float(np.abs(b[k]).max()), 1e-30)
                    for k in b)
@@ -1261,7 +1409,7 @@ def dist_nccl_rank(workdir):
                        nccl=".".join(map(str, torch.cuda.nccl.version())),
                        device=torch.cuda.get_device_name(torch.cuda.current_device()),
                        loss=m_g["loss"], loss_plain=m_p["loss"], grad_rel=rel(g_g, g_p),
-                       param_rel=rel(p_g, p_p)), f)
+                       param_rel=rel(p_g, p_p), dcp=dcp), f)
 
 
 def dist_rank(workdir):
@@ -1375,6 +1523,10 @@ def phase_distributed(root, smi):
     from doubleattentionspeakerverification_tpu_torch.config import ExperimentConfig
     from doubleattentionspeakerverification_tpu_torch.training.optimizers import make_optimizer
     from doubleattentionspeakerverification_tpu_torch.training.step import make_train_step
+    from doubleattentionspeakerverification_tpu_torch.utils.dist_ckpt import (
+        DcpAsyncSaver, load_checkpoint_dcp, save_checkpoint_dcp,
+    )
+    from doubleattentionspeakerverification_tpu_torch.utils.weights import train_state_to_jax
 
     t_phase = time.perf_counter()
     work = os.path.join(root, "distributed")
@@ -1395,6 +1547,13 @@ def phase_distributed(root, smi):
           f"{nccl['loss']:.6f} vs {nccl['loss_plain']:.6f}, gradients within "
           f"{nccl['grad_rel']:.3g} and parameters within {nccl['param_rel']:.3g} of their "
           f"largest (tol {TOL_TRAIN_GRAD})")
+    dcp = nccl["dcp"]
+    check(not dcp["marker_early"] and dcp["equal"] and dcp["meta"] == {"step": 1},
+          f"[distributed] NCCL: the asynchronous .dcp save: {dcp}")
+    print(f"[distributed] NCCL at world size 1: one asynchronous .dcp of the {dcp['n_leaves']} "
+          f"leaves after the step (DcpAsyncSaver, its own gloo group): issued in "
+          f"{dcp['issued_s']:.4f} s, no meta.json before wait(), finalized in a further "
+          f"{dcp['wait_s']:.4f} s; every leaf read back equal")
 
     # the paper-width step, one process, as the two ranks will take it
     cfg = ExperimentConfig()
@@ -1485,8 +1644,17 @@ def phase_distributed(root, smi):
                   f"[distributed] cli rank {r}: kernel {name} was never launched")
     log = os.path.join(root, "console.log")
     one = os.path.join(root, "dist_one")
-    with saved_validation_caches(os.path.join(work, "cache_one")):
-        trainer_cli(trainer_argv(root, one, *cli_flags), log)
+    sync = os.path.join(root, "dist_sync")
+    # one process, asynchronous .dcp (no process group: no_dist), then the
+    # same run writing every .dcp synchronously; cuDNN deterministic, so the
+    # two runs take the same steps
+    torch.backends.cudnn.deterministic = True
+    try:
+        with saved_validation_caches(os.path.join(work, "cache_one")):
+            trainer_cli(trainer_argv(root, one, *cli_flags), log)
+        trainer_cli(trainer_argv(root, sync, *cli_flags, "--no-checkpoint_async"), log)
+    finally:
+        torch.backends.cudnn.deterministic = False
     ev2, ev1 = trainer_events(out_dir), trainer_events(one)
 
     def by_step(events, kind, key):
@@ -1504,9 +1672,61 @@ def phase_distributed(root, smi):
     check(len(shards) == 2 and all(e["n_local"] == -(-e["n_total"] // 2) for e in shards),
           f"[distributed] sharded validation {shards}")
     emb_err, emb_gap = compare_validation_caches(work, len(e1))
+    # the asynchronous saves: each run's ckpt_save modes; the prune runs as a
+    # save is issued and counts only finished directories (JAX's rule), so
+    # the last save lands on top of the 3 kept, and every one is finished
+    blocked = {}
+    for run, d, mode in (("2 ranks", out_dir, "async"), ("one process", one, "async"),
+                         ("one process, --no-checkpoint_async", sync, "sync")):
+        saves = [e for e in trainer_events(d) if e["event"] == "ckpt_save"]
+        check([e["step"] for e in saves if e["kind"] == "periodic"] == [1, 2, 3, 4]
+              and all((e["backend"], e["mode"]) == ("dcp", mode) for e in saves),
+              f"[distributed] {run}: ckpt_save events {saves}")
+        blocked[f"{mode} ({run})"] = [e["blocked_s"] for e in saves]
+        dcps = sorted(f for f in os.listdir(d) if f.endswith(".dcp") and "_best_" not in f)
+        steps = sorted(int(f.rsplit("_", 1)[1][:-4]) for f in dcps)
+        check(steps == ([2, 3, 4] if mode == "sync" else [1, 2, 3, 4])
+              and all(os.path.exists(os.path.join(d, f, "meta.json")) for f in dcps),
+              f"[distributed] {run}: .dcp checkpoints {dcps}")
+    # the asynchronous and the synchronous one-process runs leave the same
+    # leaves (up to the card's run-to-run rounding, which cuDNN's
+    # deterministic algorithms leave out)
+    (a_dir,), (s_dir,) = ([os.path.join(d, f) for f in os.listdir(d) if f.endswith("_4.dcp")]
+                          for d in (one, sync))
+    a_leaves, _ = load_checkpoint_dcp(a_dir)
+    s_leaves, _ = load_checkpoint_dcp(s_dir)
+    check(set(a_leaves) == set(s_leaves), "[distributed] async vs sync: leaf sets")
+    leaf_err = max(float(np.abs(a_leaves[k] - s_leaves[k]).max())
+                   / max(float(np.abs(s_leaves[k]).max()), 1e-30) for k in s_leaves)
+    n_equal = sum(np.array_equal(a_leaves[k], s_leaves[k]) for k in s_leaves)
+    check(leaf_err <= TOL_TRAINER_RESUME, f"[distributed] async vs sync: step 4's leaves "
+          f"differ by {leaf_err:.3g} of their largest")
+    print(f"[distributed] .dcp saves, ckpt_save blocked_s by mode: "
+          + "; ".join(f"{k}: " + ", ".join(f"{x:.4f}" for x in v) for k, v in blocked.items())
+          + f" s; step 4's {len(s_leaves)} leaves, async against sync: {n_equal} bit for bit, "
+          f"all within {leaf_err:.3g} of their largest (tol {TOL_TRAINER_RESUME}); on {smi}")
+    # the saver alone, one process, on the paper model's leaves (SGD, no
+    # moments): a synchronous save against an asynchronous one issued with
+    # nothing in flight and then waited for, twice
+    leaves = train_state_to_jax(dist_model(cfg).state_dict(), {}, "SGD", 1, 1e-4)
+    mb = sum(v.nbytes for v in leaves.values()) / 2**20
+    saver, split = DcpAsyncSaver(), []
+    for i in range(2):
+        t0 = time.perf_counter()
+        save_checkpoint_dcp(os.path.join(work, f"sync_{i}.dcp"), leaves, {"step": i})
+        t1 = time.perf_counter()
+        path = saver.save(os.path.join(work, f"async_{i}.dcp"), leaves, {"step": i})
+        t2 = time.perf_counter()
+        saver.wait()
+        split.append((t1 - t0, t2 - t1, time.perf_counter() - t2))
+        back, _ = load_checkpoint_dcp(path)
+        check(all(np.array_equal(back[k], leaves[k]) for k in leaves),
+              f"[distributed] the asynchronous save {i} read back unequal")
+    del leaves, back
+    print(f"[distributed] one process, the paper model's {mb:.1f} MiB of leaves: synchronous "
+          f"save / asynchronous issue / its wait " + ", ".join(
+              f"{a:.4f} / {b:.4f} / {c:.4f}" for a, b, c in split) + f" s; on {smi}")
     dcps = sorted(f for f in os.listdir(out_dir) if f.endswith(".dcp"))
-    check(len(dcps) == 3 and all(os.path.exists(os.path.join(out_dir, d, "meta.json"))
-                                 for d in dcps), f"[distributed] .dcp checkpoints {dcps}")
     # 2 -> 1: one process resumes from the two ranks' step-2 checkpoint
     (two,) = [d for d in dcps if d.endswith("_2.dcp")]
     resumed = os.path.join(root, "dist_resumed")

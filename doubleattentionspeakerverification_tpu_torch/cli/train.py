@@ -384,6 +384,8 @@ def main(argv=None) -> int:
             trainer.resume()
         trainer.train()
     finally:
+        if stop_box.get("trainer") is not None:
+            stop_box["trainer"].close()     # its watchdog must not outlive the run
         logger.close()
         if quiet is not None:
             quiet.close()

@@ -14,6 +14,12 @@ outside any kernel in the JAX package too.
 ``torch.utils.checkpoint.checkpoint`` (non-reentrant), so the backward keeps
 only each block's input and recomputes its convs, ReLUs, masks and pool.
 Forwards without grad (eval, serving) are unchanged.
+
+``ModelConfig.compute_dtype = "bfloat16"`` runs the convs, ReLUs, masks and
+pools in bfloat16 and rounds as JAX does: the conv's output to bfloat16,
+then the bias added in bfloat16 (JAX ``models/vgg.py:82-90``), so the
+encoder's output is JAX's bit for bit on the CPU. In float32 the bias stays
+fused into the conv.
 """
 
 from __future__ import annotations
@@ -89,7 +95,13 @@ class VGG(nn.Module):
 
     def _conv(self, h: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.conv2d(h.to(dt), conv.weight.to(dt), conv.bias.to(dt), padding=1)
+        if dt == torch.float32:
+            # one pass over the output; the two orders agree in float32
+            return F.conv2d(h, conv.weight, conv.bias, padding=1)
+        # JAX rounds the conv to the compute dtype, then adds the bias in it
+        # (``models/vgg.py:82-90``): two roundings, which a fused bias skips
+        y = F.conv2d(h.to(dt), conv.weight.to(dt), None, padding=1)
+        return y + conv.bias.to(dt)[:, None, None]
 
     def _block(self, h: torch.Tensor, i: int, cur_len: Optional[torch.Tensor]) -> torch.Tensor:
         for j in (1, 2):

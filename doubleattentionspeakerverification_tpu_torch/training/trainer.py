@@ -31,6 +31,12 @@ process's flag. Validation needs no gather of ``W``: the embedding stops
 at ``b2``, and every other parameter is whole on every process. One
 process ignores ``mesh`` (JAX on one device makes no mesh either).
 
+Under ``checkpoint_async`` (the default) periodic ``.dcp`` saves are
+written by ``utils/dist_ckpt.py:DcpAsyncSaver`` and finalized at the next
+save, a graceful stop, the end of ``train()`` or :meth:`Trainer.close`,
+which also stops the stall watchdog; the CLI closes its trainer however
+the run ends.
+
 ``profile_dir`` traces optimizer steps ``[profile_start_step,
 + profile_steps)`` with ``torch.profiler`` (``utils/profiling.py``), logging
 ``profile_started`` and ``profile_stopped`` as the JAX trainer does; the
@@ -135,53 +141,66 @@ class Trainer:
                 "(npz checkpoints host-gather; pass --checkpoint_backend orbax)"
             )
         # the clock starts at construction: a wedged first device call
-        # shows too
+        # shows too; a constructor that raises stops it again
+        self._failed = False
+        self._dcp_saver = None
         self._watchdog = self._make_watchdog().start()
-        self._wav_mode_requested = cfg.data.wav_mode
-        if self.num_hosts > 1 and cfg.data.source == "wav" and cfg.data.wav_mode == "auto":
-            self.cfg = cfg = self._pin_wav_mode(cfg)
+        try:
+            self._wav_mode_requested = cfg.data.wav_mode
+            if self.num_hosts > 1 and cfg.data.source == "wav" and cfg.data.wav_mode == "auto":
+                self.cfg = cfg = self._pin_wav_mode(cfg)
 
-        self.mesh = None
-        self._local_rows = None
-        if self.num_hosts > 1:
-            data_size = self.num_hosts // max(1, cfg.mesh.model_axis)
-            if cfg.train.batch_size % max(1, data_size):
-                raise ValueError(
-                    f"batch_size {cfg.train.batch_size} not divisible by the mesh data axis "
-                    f"({data_size}) — required for multi-host training")
-            self.mesh = make_mesh(cfg.mesh)
-            self._local_rows = host_batch_rows(self.mesh, cfg.train.batch_size)
-        self._columns = shard_columns(cfg.model.num_spkrs, self.mesh)
-        model = init_parameters(SpeakerClassifier(cfg.model),
-                                torch.Generator().manual_seed(cfg.train.seed))
-        self.model = shard_model(model, self.mesh).to(self.device)
-        self.optimizer = make_optimizer(cfg.train, self.model.parameters())
-        # the learning rate is held as float32, as optax holds it
-        with_lr(self.optimizer, float(np.float32(cfg.train.learning_rate)))
-        self.train_step: TrainStep = make_train_step(cfg, self.model, self.optimizer,
-                                                     self.device, mesh=self.mesh)
-        self._val_model: Optional[SpeakerClassifier] = None
-        self._val_stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+            self.mesh = None
+            self._local_rows = None
+            if self.num_hosts > 1:
+                data_size = self.num_hosts // max(1, cfg.mesh.model_axis)
+                if cfg.train.batch_size % max(1, data_size):
+                    raise ValueError(
+                        f"batch_size {cfg.train.batch_size} not divisible by the mesh data axis "
+                        f"({data_size}) — required for multi-host training")
+                self.mesh = make_mesh(cfg.mesh)
+                self._local_rows = host_batch_rows(self.mesh, cfg.train.batch_size)
+            self._columns = shard_columns(cfg.model.num_spkrs, self.mesh)
+            if cfg.train.checkpoint_backend == "orbax" and cfg.train.checkpoint_async:
+                from ..utils.dist_ckpt import DcpAsyncSaver
 
-        self._load_data()
+                # its gloo group is made after the mesh's, in the same order
+                # on every process
+                self._dcp_saver = DcpAsyncSaver()
+            model = init_parameters(SpeakerClassifier(cfg.model),
+                                    torch.Generator().manual_seed(cfg.train.seed))
+            self.model = shard_model(model, self.mesh).to(self.device)
+            self.optimizer = make_optimizer(cfg.train, self.model.parameters())
+            # the learning rate is held as float32, as optax holds it
+            with_lr(self.optimizer, float(np.float32(cfg.train.learning_rate)))
+            self.train_step: TrainStep = make_train_step(cfg, self.model, self.optimizer,
+                                                         self.device, mesh=self.mesh)
+            self._val_model: Optional[SpeakerClassifier] = None
+            self._val_stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
 
-        self.best_eer = 50.0
-        self.stopping = 0
-        self.starting_epoch = 0
-        self.epoch = 0
-        self.best_ckpt_path: Optional[str] = None
-        self._print_t0 = time.time()
-        self._pause_s = 0.0
-        self._valid_loader = None
-        self._pending_val = None  # (thread, result_box, snapshot, epoch)
-        self._checkpointer = AsyncCheckpointer()
-        self._stop_requested = False  # set by request_stop (signal handler)
-        self._stop_reason = ""
-        self.preempted = False  # train() exited via a graceful stop
-        self._resume_skip_steps = 0  # mid-epoch resume: in-epoch steps done
-        self._dispatch_hint_logged = False
-        if os.environ.get("DMHA_REQUEUE"):
-            self.resume()
+            self._load_data()
+
+            self.best_eer = 50.0
+            self.stopping = 0
+            self.starting_epoch = 0
+            self.epoch = 0
+            self.best_ckpt_path: Optional[str] = None
+            self._print_t0 = time.time()
+            self._pause_s = 0.0
+            self._valid_loader = None
+            self._pending_val = None  # (thread, result_box, snapshot, epoch)
+            self._checkpointer = AsyncCheckpointer()
+            self._stop_requested = False  # set by request_stop (signal handler)
+            self._stop_reason = ""
+            self.preempted = False  # train() exited via a graceful stop
+            self._resume_skip_steps = 0  # mid-epoch resume: in-epoch steps done
+            self._dispatch_hint_logged = False
+            if os.environ.get("DMHA_REQUEUE"):
+                self.resume()
+        except BaseException:
+            self._failed = True
+            self.close()
+            raise
 
     @property
     def step(self) -> int:
@@ -436,8 +455,12 @@ class Trainer:
     def _save(self, kind: str = "periodic", snap: Optional[TrainSnapshot] = None,
               epoch: Optional[int] = None) -> str:
         """Queue a checkpoint of ``snap`` (the live state by default). The
-        host copy is made here; the JAX layout, the write and, for periodic
-        files, the pruning run on the checkpointer's thread."""
+        host copy is made here. npz: the JAX layout, the write and, for
+        periodic files, the pruning run on the checkpointer's thread. .dcp
+        under ``checkpoint_async``: periodic saves are written by DCP's
+        thread and finalized at the next ``wait()``, best saves block (JAX
+        ``training/trainer.py:524-538``); otherwise every process writes its
+        shards before this returns."""
         t0 = time.perf_counter()
         snap = self._snapshot(clone=False) if snap is None else snap
         os.makedirs(self.cfg.out_dir, exist_ok=True)
@@ -455,12 +478,19 @@ class Trainer:
                          self.cfg.train.optimizer, host.step, host.lr)
         keep = self.cfg.train.keep_checkpoints
         if dcp:
-            # every process writes its shards, synchronously: a collective
+            # every process writes its shards: a collective
             from ..utils.dist_ckpt import prune_dcp_checkpoints, save_checkpoint_dcp
 
-            save_checkpoint_dcp(path, leaves(), meta, columns=self._columns)
-            self.log.log("ckpt_save", kind=kind, backend="dcp", step=snap.step, mode="sync",
+            if self._dcp_saver is not None:
+                self._dcp_saver.save(path, leaves(), meta, columns=self._columns,
+                                     block=kind == "best")
+            else:
+                save_checkpoint_dcp(path, leaves(), meta, columns=self._columns)
+            self.log.log("ckpt_save", kind=kind, backend="dcp", step=snap.step,
+                         mode="sync" if self._dcp_saver is None else "async",
                          blocked_s=round(time.perf_counter() - t0, 4))
+            # the save in flight has no meta.json yet and is the newest: the
+            # pruning neither counts nor removes it
             if kind != "best" and keep > 0:
                 prune_dcp_checkpoints(self.cfg.out_dir, self.model_name, keep,
                                       (self.best_ckpt_path,) if self.best_ckpt_path else ())
@@ -503,7 +533,7 @@ class Trainer:
                      reason=self._stop_reason or "peer-host signal")
         self._join_validation()
         path = self._save("periodic")
-        self._checkpointer.wait()
+        self._wait_for_saves()
         self.preempted = True
         self.log.log("preempt_checkpoint", path=path, step=step)
 
@@ -600,7 +630,36 @@ class Trainer:
             on_stall=on_stall,
         )
 
+    def _wait_for_saves(self) -> None:
+        """Every checkpoint written, the ``.dcp`` one in flight finalized."""
+        self._checkpointer.wait()
+        if self._dcp_saver is not None:
+            self._dcp_saver.wait()
+
+    def close(self) -> None:
+        """Stop the stall watchdog; idempotent. After a clean run the
+        ``.dcp`` save in flight is finalized first (a collective). After a
+        failure (a ``train()`` or a constructor that raised) no collective
+        runs: that save stays without its marker, invisible to ``latest``
+        and removed by a later prune, as a crash leaves it (JAX's crash
+        semantics). The JAX trainer has no such method, and its watchdog
+        outlives a trainer that never trains (``training/trainer.py:73``)."""
+        if self._dcp_saver is not None and not self._failed:
+            self._dcp_saver.wait()
+        if self._watchdog is not None:
+            self._watchdog.stop()
+            self._watchdog = None
+
     def train(self) -> None:
+        """The training loop; one that raises closes the trainer first."""
+        try:
+            self._train()
+        except BaseException:
+            self._failed = True
+            self.close()
+            raise
+
+    def _train(self) -> None:
         cfg = self.cfg
         self._print_t0 = time.time()
         self._pause_s = 0.0
@@ -704,7 +763,7 @@ class Trainer:
             profiler.close(sync=None if last_metrics is None else last_metrics["loss"])
             self.log.log("profile_stopped", step=step, dir=cfg.train.profile_dir)
         self._join_validation()
-        self._checkpointer.wait()
+        self._wait_for_saves()
         if cfg.train.post_step_bench > 0 and last_batch is not None:
             self._post_step_bench(last_batch, cfg.train.post_step_bench, watchdog)
         watchdog.stop()

@@ -20,6 +20,12 @@ save cut short is never resumed from. Selected with
 ``TrainConfig.checkpoint_backend = "orbax"`` (the config value either
 package reads); more than one process requires it.
 
+:class:`DcpAsyncSaver` is the counterpart of JAX ``OrbaxAsyncSaver``
+(``utils/orbax_ckpt.py:58-124``): ``torch.distributed.checkpoint.async_save``
+writes on a thread of its own, and ``meta.json`` lands at the next
+``wait()`` on the calling thread, so a save in flight is invisible to
+:func:`latest_dcp_checkpoint` as one cut short is.
+
 The JAX package's own ``.orbax`` directories cannot be read here (no orbax,
 no JAX): :data:`ORBAX_REFUSAL` says how to carry one across.
 """
@@ -84,15 +90,10 @@ def _finalize_meta(path: str, meta: Dict[str, Any]) -> None:
     _barrier()
 
 
-def save_checkpoint_dcp(path: str, flat: Mapping[str, np.ndarray], meta: Dict[str, Any],
-                        columns: Optional[Tuple[int, int]] = None) -> str:
-    """Write this process's leaves to the directory ``path``; ``W`` and its
-    moments are its ``columns`` [lo, hi) of the whole matrices (all of them
-    by default). A collective: every process calls it at the same point."""
-    import torch.distributed as dist
-    import torch.distributed.checkpoint as dcp
-
-    path = os.path.abspath(path)
+def _dcp_state(flat: Mapping[str, np.ndarray],
+               columns: Optional[Tuple[int, int]]) -> Dict[str, torch.Tensor]:
+    """The leaves as DCP's state dict: ``W`` and its moments keyed by their
+    ``columns`` [lo, hi) of the whole matrices (all of them by default)."""
     state = {}
     for key, value in flat.items():
         t = torch.from_numpy(np.array(value, copy=True))
@@ -102,14 +103,93 @@ def save_checkpoint_dcp(path: str, flat: Mapping[str, np.ndarray], meta: Dict[st
                 raise ValueError(f"{key}: {t.shape[1]} columns given as [{lo}, {hi})")
             key = f"{key}@{lo}:{hi}"
         state[key] = t
+    return state
+
+
+def _clear(path: str) -> None:
+    """Remove a leftover of a save cut short at this step (process 0), then
+    a barrier: no process writes into a directory being removed."""
     if _rank() == 0 and os.path.isdir(path):
-        shutil.rmtree(path)       # a leftover of a save cut short at this step
+        shutil.rmtree(path)
     _barrier()
+
+
+def save_checkpoint_dcp(path: str, flat: Mapping[str, np.ndarray], meta: Dict[str, Any],
+                        columns: Optional[Tuple[int, int]] = None) -> str:
+    """Write this process's leaves to the directory ``path``; ``W`` and its
+    moments are its ``columns`` [lo, hi) of the whole matrices (all of them
+    by default). A collective: every process calls it at the same point."""
+    import torch.distributed as dist
+    import torch.distributed.checkpoint as dcp
+
+    path = os.path.abspath(path)
+    state = _dcp_state(flat, columns)
+    _clear(path)
     with warnings.catch_warnings():   # DCP warns that one process saves alone
         warnings.simplefilter("ignore", UserWarning)
         dcp.save(state, checkpoint_id=path, no_dist=not dist.is_initialized())
     _finalize_meta(path, meta)
     return path
+
+
+class DcpAsyncSaver:
+    """Asynchronous ``.dcp`` writes with ``meta.json`` deferred to
+    :meth:`wait`, as JAX ``OrbaxAsyncSaver``.
+
+    :meth:`save` first finalizes the save in flight, clears a leftover at
+    ``path`` (process 0, then a barrier) and issues ``async_save``, which
+    copies the leaves and returns; DCP plans and writes on its own thread.
+    :meth:`wait` takes that write's result (raising its error) and then
+    writes ``meta.json`` through :func:`_finalize_meta` on the calling
+    thread. So save N's marker lands at the next ``wait()``: the next save,
+    a best save (``block=True``), a graceful stop or the end of training,
+    and a process killed between them resumes from the save before. One
+    save is in flight at a time. A failing ``async_save`` raises; nothing
+    falls back to a synchronous write.
+
+    Across processes every method is a collective, called at the same step
+    on every process. DCP's writer thread issues its collectives (its plan's
+    gathers and its barrier) on a gloo group of its own, created here on
+    every process in the same order, so they never pair with the training
+    step's on the loop thread; the group also gives DCP the CPU backend that
+    ``async_save`` requires where the default group is NCCL's. One process
+    without ``torch.distributed`` saves with ``no_dist``."""
+
+    def __init__(self):
+        import torch.distributed as dist
+
+        self._group = dist.new_group(backend="gloo") if dist.is_initialized() else None
+        self._pending: Optional[Tuple[Any, str, Dict[str, Any]]] = None
+
+    def save(self, path: str, flat: Mapping[str, np.ndarray], meta: Dict[str, Any],
+             columns: Optional[Tuple[int, int]] = None, block: bool = False) -> str:
+        import torch.distributed.checkpoint as dcp
+
+        self.wait()
+        path = os.path.abspath(path)
+        state = _dcp_state(flat, columns)
+        _clear(path)
+        if self._group is None:
+            future = dcp.async_save(state, checkpoint_id=path, no_dist=True)
+        else:
+            future = dcp.async_save(state, checkpoint_id=path, process_group=self._group)
+        self._pending = (future, path, meta)
+        if block:
+            self.wait()
+        return path
+
+    def wait(self) -> None:
+        """Finalize the save in flight, if any: its write's result, then
+        ``meta.json`` (with the barriers around it across processes)."""
+        if self._pending is None:
+            return
+        future, path, meta = self._pending
+        self._pending = None
+        future.result()
+        _finalize_meta(path, meta)
+
+    def close(self) -> None:
+        self.wait()
 
 
 def load_checkpoint_dcp(path: str) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:

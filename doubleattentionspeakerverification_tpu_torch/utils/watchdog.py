@@ -14,6 +14,8 @@ import threading
 import time
 from typing import Callable, Optional
 
+THREAD_NAME = "stall-watchdog"
+
 
 class Watchdog:
     def __init__(
@@ -37,7 +39,7 @@ class Watchdog:
 
     def start(self) -> "Watchdog":
         self._stop.clear()
-        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread = threading.Thread(target=self._run, name=THREAD_NAME, daemon=True)
         self._thread.start()
         return self
 

@@ -38,6 +38,7 @@ from doubleattentionspeakerverification_tpu_torch.models.init import init_parame
 from doubleattentionspeakerverification_tpu_torch.models.poolings import draw_head_keep
 from doubleattentionspeakerverification_tpu_torch.training import optimizers as popt
 from doubleattentionspeakerverification_tpu_torch.utils import checkpoint as pckpt
+from doubleattentionspeakerverification_tpu_torch.utils import dist_ckpt
 from doubleattentionspeakerverification_tpu_torch.utils import native as pnative
 from doubleattentionspeakerverification_tpu_torch.utils.weights import (
     load_train_state,
@@ -178,6 +179,25 @@ def test_train_loader_start_step_skips_exactly(corpus):
         assert np.array_equal(_bits(g["inputs"]), _bits(f["inputs"]))
 
 
+def test_assume_full_loader_rejects_short_as_jax(tmp_path):
+    """Under ``assume_full_lengths`` a batch with an utterance shorter than
+    the window is refused, with JAX's message (JAX
+    ``tests/test_training.py:371-386``: a 100-frame window over files of
+    60-120 frames)."""
+    root = str(tmp_path / "feats")
+    manifest = parse_train_manifest(make_synthetic_features(root, t_range=(60, 120)))
+    errors = []
+    for cfgs, data in ((jconfig, jdata), (pconfig, pdata)):
+        tcfg = cfgs.TrainConfig(window_size=1.0, batch_size=4, gradient_accumulation=1,
+                                assume_full_lengths=True)
+        loader = data.TrainLoader(manifest, data.FeaturePickleSource(root, "cmn", 100), tcfg,
+                                  cfgs.DataConfig(), feature_dim=80)
+        with pytest.raises(ValueError, match="assume_full_lengths") as err:
+            list(loader.epoch(0))
+        errors.append(str(err.value))
+    assert errors[1] == errors[0]
+
+
 def test_native_windows_and_host_logmel_equal_jax(corpus):
     """The port's own build of ``native/`` draws the JAX loader's windows and
     computes its host log-mel; the numpy fallback is a copy."""
@@ -301,6 +321,44 @@ def test_async_checkpointer_supersedes_and_prunes_after_writing(tmp_path):
     assert all(calls) and sorted(os.listdir(tmp_path)) == ["m_0.npz", "m_1.npz"]
     flat, meta = pckpt.load_checkpoint(str(tmp_path / "m_1.npz"))
     assert meta["step"] in (1, 3) and flat["x"][0] == meta["step"]
+
+
+def test_dcp_async_saver_defers_finalization(tmp_path):
+    """``DcpAsyncSaver`` on one process, as JAX
+    ``test_orbax_async_saver_defers_finalization``
+    (``tests/test_training.py:693-724``): a save not yet waited for has no
+    ``meta.json`` and is invisible to ``latest_dcp_checkpoint`` and to the
+    pruning; ``wait()`` lands it; ``block=True`` finalizes before it returns;
+    the leaves read back equal the synchronous writer's, ``W`` in columns
+    too."""
+    _, template = _jax_template("Adam")
+    flat = jckpt._flatten(template)
+    out = str(tmp_path / "ck")
+    saver = dist_ckpt.DcpAsyncSaver()
+    p2 = saver.save(f"{out}/m_2.dcp", flat, {"step": 2})
+    assert dist_ckpt.latest_dcp_checkpoint(out) is None
+    assert not os.path.exists(os.path.join(p2, "meta.json"))
+    dist_ckpt.prune_dcp_checkpoints(out, "m", 1)
+    saver.wait()
+    assert dist_ckpt.latest_dcp_checkpoint(out) == p2
+
+    # the next save finalizes the one before it; the one in flight is
+    # neither counted nor removed by the pruning
+    p3 = saver.save(f"{out}/m_3.dcp", flat, {"step": 3}, columns=(0, 4))
+    dist_ckpt.prune_dcp_checkpoints(out, "m", 1)
+    assert dist_ckpt.latest_dcp_checkpoint(out) == p2
+    best = saver.save(f"{out}/m_best_4.dcp", flat, {"step": 4}, block=True)
+    assert all(os.path.exists(os.path.join(p, "meta.json")) for p in (p2, p3, best))
+    assert dist_ckpt.latest_dcp_checkpoint(out) == best
+    saver.close()
+
+    sync = dist_ckpt.save_checkpoint_dcp(str(tmp_path / "sync_2.dcp"), flat, {"step": 2})
+    ref, _ = dist_ckpt.load_checkpoint_dcp(sync)
+    for path, step in ((p2, 2), (p3, 3), (best, 4)):
+        got, meta = dist_ckpt.load_checkpoint_dcp(path)
+        assert meta == {"step": step} and set(got) == set(ref) == set(flat)
+        for k in ref:
+            assert got[k].dtype == ref[k].dtype and np.array_equal(got[k], ref[k]), (path, k)
 
 
 # --------------------------------------------------------------- embeddings

@@ -2,6 +2,7 @@
 padded batches, ``get_embedding`` through ``params_from_jax`` for every
 pooling method, and the committed example checkpoint's golden embeddings."""
 
+import dataclasses
 import os
 
 import jax
@@ -93,6 +94,29 @@ def test_vgg_padded_batch_matches_jax(front_end):
         output_lengths(torch.from_numpy(lens), front_end).numpy(),
         np.asarray(jax_output_lengths(lens, front_end)),
     )
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_vgg_matches_jax_bit_for_bit(compute_dtype):
+    """VGG4L on a ragged batch (lengths 83, 50, 21) equals JAX's jitted
+    ``vgg_apply`` bit for bit, with the weights carried by ``utils/weights.py``,
+    in float32 and in bfloat16. In bfloat16 JAX rounds the conv's output to
+    bfloat16 and then adds the bias in bfloat16 (JAX ``models/vgg.py:82-90``);
+    a bias fused into the conv, rounded once, is off by a bfloat16 ulp. The
+    same holds under ``remat_vgg`` with grad on, the training path."""
+    params, _, jcfg, flat = _jax_model(front_end="VGG4L", compute_dtype=compute_dtype)
+    _, padded, lens = _padded_batch([83, 50, 21], seed=1)
+    ref, ref_len = jax.jit(vgg_apply, static_argnums=3)(params["vgg"], padded, lens, jcfg.model)
+    mcfg = ExperimentConfig.from_dict(jcfg.to_dict()).model
+    state = {k[4:]: v for k, v in params_from_jax(flat).items() if k.startswith("vgg.")}
+    for remat in (False, True):
+        vgg = VGG(dataclasses.replace(mcfg, remat_vgg=remat))
+        vgg.load_state_dict(state)
+        with torch.set_grad_enabled(remat):
+            got, got_len = vgg(torch.from_numpy(padded), torch.from_numpy(lens))
+        assert got.dtype == torch.float32 and got.requires_grad == remat
+        np.testing.assert_array_equal(got.detach().numpy(), np.asarray(ref))
+        np.testing.assert_array_equal(got_len.numpy(), np.asarray(ref_len))
 
 
 @pytest.mark.parametrize("pooling", ["DoubleMHA", "MHA", "Attention", "StatisticalPooling"])

@@ -104,6 +104,8 @@ def runs(tmp_path_factory):
     plan = [
         ["A2", _argv(root, "A2", 2)],
         ["C1", _argv(root, "C", 1, *mp)],
+        # C1 again with every .dcp written synchronously
+        ["C1sync", _argv(root, "Csync", 1, *mp, "--no-checkpoint_async")],
         ["copy", [os.path.join(root, "C"), os.path.join(root, "T")]],
         ["C2", _argv(root, "C", 2, *mp, "--requeue")],
         # unsharded validation; process 1 alone is signalled after step 1
@@ -131,7 +133,7 @@ def runs(tmp_path_factory):
 def test_two_processes_joined_and_exited_zero(runs):
     for r in runs["results"]:
         assert f"process {r.rank} of 2, backend gloo, device cpu" in r.stdout
-    assert runs["rcs"] == [{"A2": 0, "C1": 0, "C2": 0, "stop": 0}] * 2
+    assert runs["rcs"] == [{"A2": 0, "C1": 0, "C1sync": 0, "C2": 0, "stop": 0}] * 2
 
 
 def test_scenario_A_losses_and_eers(runs):
@@ -166,6 +168,26 @@ def test_scenario_C_model_parallel_resumed_by_two_processes(runs):
     assert "params/amsoftmax/W" not in keys
     assert all(os.path.exists(os.path.join(root, "C", d, "meta.json"))
                for d in os.listdir(os.path.join(root, "C")) if d.endswith(".dcp"))
+
+
+def test_async_and_sync_dcp_saves_leave_equal_leaves(runs):
+    """The runs take the asynchronous ``.dcp`` path by default (``ckpt_save``
+    mode ``async``, every directory finalized by the run's end); C1 with
+    ``--no-checkpoint_async`` logs ``sync`` and leaves the same leaves at
+    step 2, ``W``'s columns included."""
+    root = runs["root"]
+    for run, mode, steps in (("C", "async", [1, 2, 3, 4]), ("Csync", "sync", [1, 2]),
+                             ("A2", "async", [1, 2, 3, 4])):
+        saves = _events(os.path.join(root, run), "ckpt_save")
+        assert [e["step"] for e in saves] == steps, run
+        assert {(e["backend"], e["mode"]) for e in saves} == {("dcp", mode)}, run
+        assert all(e["blocked_s"] >= 0 for e in saves)
+    a, b = (dist_ckpt.load_checkpoint_dcp(os.path.join(root, run, name))[0]
+            for run in ("C", "Csync") for name in os.listdir(os.path.join(root, run))
+            if name.endswith("_2.dcp") and "_best_" not in name)
+    assert set(a) == set(b) and "params/amsoftmax/W" in a
+    for k in a:
+        assert a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]), k
 
 
 def test_scenario_T_model_parallel_resumed_by_one_process(runs):

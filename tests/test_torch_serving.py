@@ -287,8 +287,9 @@ def test_cli_builds_a_server_on_the_cpu():
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every module of the port, serving, the multi-process modules, the
-    kernel dispatcher, the profiler and the TensorBoard writer included,
-    imports without loading jax or any module of the JAX package."""
+    kernel dispatcher, the profiler, the TensorBoard writer and the bfloat16
+    drift tool included, imports without loading jax or any module of the
+    JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import doubleattentionspeakerverification_tpu_torch as port\n"
@@ -298,7 +299,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "    importlib.import_module(name)\n"
         "new = ['parallel.distributed', 'parallel.mesh', 'parallel.sharded_amsoftmax',\n"
         "       'utils.dist_ckpt', 'cli.convert_checkpoint', 'tools.multihost_check',\n"
-        "       'utils.kernel_auto', 'utils.profiling', 'utils.tensorboard']\n"
+        "       'utils.kernel_auto', 'utils.profiling', 'utils.tensorboard',\n"
+        "       'tools.bf16_drift']\n"
         "assert all(port.__name__ + '.' + m in names for m in new), names\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib')\n"
         "       or (m + '.').startswith('doubleattentionspeakerverification_tpu.')]\n"

@@ -423,6 +423,21 @@ def test_train_step_matches_jax(wav, monkeypatch):
         assert float(got["accuracy"]) == pytest.approx(float(ref["accuracy"]))
 
 
+def _full_batch():
+    """JAX ``tests/test_training.py``'s full-length batch: G=2 x B=4 x 80
+    frames, every window full."""
+    rng = np.random.default_rng(0)
+    return {"inputs": rng.standard_normal((G, B, T, 80)).astype(np.float32),
+            "lengths": np.full((G, B), T, np.int32),
+            "labels": np.tile(np.arange(B, dtype=np.int32), (G, 1))}
+
+
+def _jax_keep(key, cfg):
+    n_levels = int(1 / cfg.model.mask_prob)
+    return [_t(jax.random.randint(jax.random.fold_in(key, i), (B, HEADS), 0, n_levels) > 0)
+            for i in range(G)]
+
+
 def test_remat_vgg_step_matches_plain_step_and_jax(monkeypatch):
     """``remat_vgg`` runs each VGG block under ``torch.utils.checkpoint`` in
     the train step (one call a block a microbatch, none without grad) and
@@ -436,16 +451,11 @@ def test_remat_vgg_step_matches_plain_step_and_jax(monkeypatch):
     jcfg, cfg = _configs()
     jcfg = jcfg.replace(model=dataclasses.replace(jcfg.model, remat_vgg=True))
     params, ms = _jax_state(jcfg)
-    rng = np.random.default_rng(0)
-    batch = {"inputs": rng.standard_normal((G, B, T, 80)).astype(np.float32),
-             "lengths": np.full((G, B), T, np.int32),
-             "labels": np.tile(np.arange(B, dtype=np.int32), (G, 1))}
+    batch = _full_batch()
     key = jax.random.PRNGKey(7)
     new_state, metrics = jstep.make_train_step(jcfg, donate=False)(
         jstep.init_train_state(params, ms, jcfg), batch, key)
-    n_levels = int(1 / cfg.model.mask_prob)
-    keep = [_t(jax.random.randint(jax.random.fold_in(key, i), (B, HEADS), 0, n_levels) > 0)
-            for i in range(G)]
+    keep = _jax_keep(key, cfg)
     calls = []
     real_checkpoint = pvgg.checkpoint
     monkeypatch.setattr(pvgg, "checkpoint", lambda *a, **kw: calls.append(1) or
@@ -480,6 +490,158 @@ def test_remat_vgg_step_matches_plain_step_and_jax(monkeypatch):
     for name, p in model.named_parameters():
         torch.testing.assert_close(p.grad, ref_grads[name], rtol=0, atol=1e-4 * scales[name],
                                    msg=name)
+
+
+# bfloat16 rounds to 8 significant bits: two results that differ by their
+# rounding alone differ by at most 2**-8 of their size
+TOL_BF16 = 2.0 ** -8
+_JAX_BF16 = {}
+
+
+def _bench_configs():
+    """``bench.py``'s training configuration at the tiny width: bfloat16
+    compute and ``assume_full_lengths``."""
+    jcfg, cfg = _configs(assume_full_lengths=True)
+    return (jcfg.replace(model=dataclasses.replace(jcfg.model, compute_dtype="bfloat16")),
+            cfg.replace(model=dataclasses.replace(cfg.model, compute_dtype="bfloat16")))
+
+
+def _jax_bf16_step():
+    """JAX's compiled bfloat16 full-length step on :func:`_full_batch`, once a
+    module: (params, model state, key, state after the step, metrics)."""
+    if not _JAX_BF16:
+        jcfg, _ = _bench_configs()
+        params, ms = _jax_state(jcfg)
+        key = jax.random.PRNGKey(7)
+        new_state, metrics = jstep.make_train_step(jcfg, donate=False)(
+            jstep.init_train_state(params, ms, jcfg), _full_batch(), key)
+        _JAX_BF16.update(params=params, ms=ms, key=key, new_state=new_state, metrics=metrics)
+    return _JAX_BF16
+
+
+def _conv_cotangents(monkeypatch):
+    """Every VGG conv's output cotangent (NCHW, bfloat16) in the backwards
+    run after this call, by the conv's name, one a microbatch."""
+    from doubleattentionspeakerverification_tpu_torch.models import vgg as pvgg
+
+    cots, conv = {}, pvgg.VGG._conv
+
+    def hooked(vgg, h, layer):
+        out = conv(vgg, h, layer)
+        name = next(n for n, m in vgg.named_children() if m is layer)
+        out.register_hook(lambda g: cots.setdefault(name, []).append(g.detach().clone()))
+        return out
+
+    monkeypatch.setattr(pvgg.VGG, "_conv", hooked)
+    return cots
+
+
+def test_bf16_full_length_step_matches_jax(monkeypatch):
+    """``bench.py``'s configuration (bfloat16, ``assume_full_lengths``), one
+    SGD step at G=2 on full windows with head dropout fed JAX's
+    ``fold_in`` draws, against JAX's compiled step from the same weights.
+
+    The encoder's forward is JAX's bit for bit
+    (``tests/test_torch_model.py::test_vgg_matches_jax_bit_for_bit``) and
+    its output is float32, so the loss and accuracy (1e-5), the float32
+    head's gradients and parameters after the step (1e-4 of the gradient's
+    largest, as the float32 step) and ``b2``'s statistics (1e-5) hold at the
+    float32 step's tolerances. The convs' backward runs in bfloat16: their
+    weight gradients, and the weights after the step, within 2**-8 relative
+    L2 of JAX's (one bfloat16 rounding). Their bias gradients are the sum of
+    each conv's bfloat16 output cotangent over every position; XLA on the CPU
+    accumulates that sum in bfloat16, torch in float32 rounded once, which
+    moves a sum that largely cancels by up to a tenth of its size. So the
+    port's cotangents are held to JAX's through the sum: reduced as XLA
+    reduces them (a jitted ``lax.reduce`` in bfloat16 over NHWC) they give
+    JAX's bias gradients at 1e-4 of the largest, and the port's own bias
+    gradient is their float64 sum within 2**-8 of each microbatch's sum (one
+    bfloat16 rounding of each)."""
+    ref = _jax_bf16_step()
+    jcfg, cfg = _bench_configs()
+    batch, lr = _full_batch(), cfg.train.learning_rate
+    model = _port_model(cfg, ref["params"], ref["ms"])
+    p0 = {k: v.detach().clone() for k, v in model.named_parameters()}
+    cots = _conv_cotangents(monkeypatch)
+    step = make_train_step(cfg, model, popt.make_optimizer(cfg.train, model.parameters()),
+                           device="cpu")
+    out = step(batch, keep=_jax_keep(ref["key"], cfg))
+    np.testing.assert_allclose(float(out["loss"]), float(ref["metrics"]["loss"]), atol=TOL, rtol=0)
+    np.testing.assert_allclose(float(out["accuracy"]), float(ref["metrics"]["accuracy"]), atol=TOL)
+
+    new = params_from_jax(_flatten({"params": ref["new_state"].params,
+                                    "model_state": ref["new_state"].model_state}))
+    ref_grads = {name: (p0[name] - new[name]) / lr for name in p0}
+    scales = grad_scales(ref_grads)
+    reduce_bf16 = jax.jit(lambda a: jax.lax.reduce(a, jnp.bfloat16(0), jax.lax.add, (0, 1, 2)))
+    for name, p in model.named_parameters():
+        g, ref_g = p.grad, ref_grads[name]
+        if not name.startswith("vgg."):
+            torch.testing.assert_close(g, ref_g, rtol=0, atol=1e-4 * scales[name], msg=name)
+            torch.testing.assert_close(p.detach(), new[name], rtol=0,
+                                       atol=lr * 1e-4 * scales[name], msg=name)
+        elif name.endswith(".weight"):
+            assert float((g - ref_g).norm()) <= TOL_BF16 * float(ref_g.norm()), name
+            assert float((p.detach() - new[name]).norm()) <= TOL_BF16 * float(
+                (new[name] - p0[name]).norm()), name
+        else:
+            conv = cots[name.split(".")[1]]
+            assert len(conv) == G and conv[0].dtype == torch.bfloat16
+            xla = sum(_t(reduce_bf16(jnp.asarray(c.permute(0, 2, 3, 1).float().numpy(),
+                                                 jnp.bfloat16)).astype(jnp.float32))
+                      for c in conv)
+            torch.testing.assert_close(xla, ref_g, rtol=0, atol=1e-4 * scales[name], msg=name)
+            sums = [c.double().sum((0, 2, 3)) for c in conv]     # one a microbatch
+            bound = TOL_BF16 * sum(m.abs() for m in sums)
+            assert bool(((g.double() - sum(sums)).abs() <= bound).all()), name
+    for name in ("b2.running_mean", "b2.running_var"):
+        torch.testing.assert_close(model.state_dict()[name], new[name], rtol=0, atol=TOL)
+
+
+def test_full_length_step_equals_masked_step():
+    """``assume_full_lengths`` drops the length masks (``prepare_inputs``
+    gives no lengths: B1 pools over all T and ``mask_time`` is skipped) and
+    changes nothing on full windows: the loss within 1e-6 relative and every
+    parameter after the step within 1e-6 of the masked step's, as JAX
+    ``tests/test_training.py:340-368``."""
+    jcfg, cfg = _configs()
+    params, ms = _jax_state(jcfg)
+    batch, runs = _full_batch(), {}
+    keep = _jax_keep(jax.random.PRNGKey(7), cfg)
+    for full in (False, True):
+        c = cfg.replace(train=dataclasses.replace(cfg.train, assume_full_lengths=full))
+        feats, lengths = pstep.prepare_inputs(batch, c, torch.device("cpu"))
+        assert (lengths is None) == full
+        model = _port_model(c, params, ms)
+        step = make_train_step(c, model, popt.make_optimizer(c.train, model.parameters()),
+                               device="cpu")
+        runs[full] = float(step(batch, keep=keep)["loss"]), dict(model.named_parameters())
+    (loss0, p0), (loss1, p1) = runs[False], runs[True]
+    assert loss1 == pytest.approx(loss0, rel=1e-6)
+    for name in p0:
+        torch.testing.assert_close(p1[name], p0[name], rtol=0, atol=1e-6, msg=name)
+
+
+def test_bf16_drift_tool():
+    """``tools/bf16_drift.py`` at a tiny width: the bfloat16 and the
+    emulated steps' losses within one bfloat16 step (2^-8) of the float32
+    step's, a finite distance for every gradient, and VGG's own conv back
+    once the emulation closes."""
+    from doubleattentionspeakerverification_tpu_torch.models import vgg as pvgg
+    from doubleattentionspeakerverification_tpu_torch.tools import bf16_drift
+
+    conv = pvgg.VGG._conv
+    out = bf16_drift.drift(kernel_size=16, heads=HEADS, batch=B, frames=T, device="cpu")
+    assert pvgg.VGG._conv is conv
+    loss = out["loss"]
+    for key in ("bfloat16", "emulated"):
+        assert abs(loss[key] - loss["float32"]) <= TOL_BF16 * abs(loss["float32"]), key
+    names = {n for n, _ in SpeakerClassifier(ModelConfig(kernel_size=16, heads_number=HEADS,
+                                                         embedding_size=64, num_spkrs=200))
+             .named_parameters()}
+    assert set(out["distance"]) == names
+    assert all(np.isfinite(d).all() and min(d) > 0 for d in out["distance"].values())
+    assert out["max_ratio"] > 0 and out["max_ratio_at"] in names
 
 
 def test_train_step_draws_and_refusals():

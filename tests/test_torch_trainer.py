@@ -48,6 +48,7 @@ from doubleattentionspeakerverification_tpu_torch.training.trainer import Traine
 from doubleattentionspeakerverification_tpu_torch.utils.checkpoint import load_checkpoint
 from doubleattentionspeakerverification_tpu_torch.utils.logging import MetricLogger
 from doubleattentionspeakerverification_tpu_torch.utils.tensorboard import read_scalars
+from doubleattentionspeakerverification_tpu_torch.utils.watchdog import THREAD_NAME as WATCHDOG_THREAD
 from doubleattentionspeakerverification_tpu_torch.utils.watchdog import Watchdog
 from test_data import make_synthetic_features
 from test_torch_data import jax_state_from_port
@@ -450,12 +451,19 @@ def test_cli_config_equals_jax_build_config(runs, tmp_path):
             pcli.main(argv)
 
 
+def _watchdogs():
+    return {t for t in threading.enumerate() if t.name == WATCHDOG_THREAD}
+
+
 def test_resume_step(runs, tmp_path):
     """``--resume_step`` resumes from the file of that step (here the port's
-    step 3, mid-epoch 1, so one step is left) and exits 1 where none is."""
+    step 3, mid-epoch 1, so one step is left) and exits 1 where none is,
+    leaving no stall watchdog running (the JAX CLI leaves its trainer's)."""
     name = runs["jtr"].model_name
     shutil.copy(os.path.join(runs["port"].out_dir, f"{name}_3.npz"), tmp_path)
+    before = _watchdogs()
     assert pcli.main(_argv(runs["root"], tmp_path, "--device", "cpu", "--resume_step", "9")) == 1
+    assert _watchdogs() <= before
     assert pcli.main(_argv(runs["root"], tmp_path, "--device", "cpu", "--resume_step", "3")) == 0
     (resume,) = _events(_metrics_path(tmp_path), "resume")
     assert (resume["step"], resume["epoch"], resume["in_epoch_skip"]) == (3, 1, 1)
@@ -521,6 +529,32 @@ def test_refused_flags_exit_nonzero(runs, tmp_path, flags, message, capsys):
     assert pcli.main(_argv(runs["root"], tmp_path, "--device", "cpu", *flags)) == 2
     assert message in capsys.readouterr().err
     assert not os.listdir(tmp_path)
+
+
+@pytest.mark.parametrize("where", ["train", "constructor"])
+def test_no_watchdog_outlives_a_trainer_that_raises(runs, tmp_path, where, monkeypatch):
+    """A ``train()`` that raises, and a constructor that raises after
+    starting the watchdog (here the loader finds no manifest), stop it; the
+    error comes through unchanged. ``close()`` may be called again."""
+    cfg = _port_cfg(runs["root"], tmp_path)
+    before = _watchdogs()
+    if where == "constructor":
+        cfg = cfg.replace(data=dataclasses.replace(cfg.data,
+                                                   train_labels_path=str(tmp_path / "none.ndx")))
+        with pytest.raises(FileNotFoundError):
+            Trainer(cfg, logger=MetricLogger(stream=io.StringIO()), device="cpu")
+    else:
+        trainer = Trainer(cfg, logger=MetricLogger(stream=io.StringIO()), device="cpu")
+        assert _watchdogs() - before
+
+        def fail(step, batch, keep=None):
+            raise RuntimeError("step failed")
+
+        monkeypatch.setattr(type(trainer.train_step), "__call__", fail)
+        with pytest.raises(RuntimeError, match="step failed"):
+            trainer.train()
+        trainer.close()
+    assert _watchdogs() <= before
 
 
 def test_watchdog_reports_a_stall():
