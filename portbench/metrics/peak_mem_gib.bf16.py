@@ -1,0 +1,6 @@
+"""``peak_mem_gib.train``, read in the bf16 training cell."""
+
+import os
+import runpy
+
+read = runpy.run_path(os.path.join(os.path.dirname(os.path.abspath(__file__)), "peak_mem_gib.train.py"))["read"]

@@ -1,0 +1,6 @@
+"""``train_mfu``, read in the bf16 training cell."""
+
+import os
+import runpy
+
+read = runpy.run_path(os.path.join(os.path.dirname(os.path.abspath(__file__)), "train_mfu.py"))["read"]
